@@ -1,0 +1,8 @@
+"""PyTorch + CUDA port of the sparse device path of ``repro``.
+
+``repro_torch`` runs the lowered SpMV program on one NVIDIA H100 with
+hand-written CUDA kernels (``csrc/``) for the ell/hyb, seg, split and tile
+families.  It imports ``torch`` and ``numpy`` only: no JAX and nothing of
+``repro``, whose host modules it keeps its own copies of under the same
+module names.  Entry points run on CUDA unless ``device="cpu"`` is passed.
+"""

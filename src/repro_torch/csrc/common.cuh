@@ -1,0 +1,34 @@
+// Shared definitions of the port's SpMV kernels (plain C interface, loaded
+// from Python with ctypes by repro_torch/kernels/_lib.py).
+//
+// Operand conventions, shared by every kernel:
+//   * operands are S-stacked exactly as the executor builds them (one slab
+//     per shard, padded to the largest shard); a launch covers only the
+//     shards listed in `sids` (n_sids entries, int32 on the device);
+//   * everything batched is batch-major: the x buffer is (Sx, B, Lx), the
+//     output is (S, B, R).  Sx is S (one buffer per shard, x_stride =
+//     B * Lx) or 1 (one vector every shard reads, x_stride = 0);
+//   * column b of a batched call runs exactly the per-vector arithmetic
+//     (grid.y = b), and no kernel uses atomics, so every result is
+//     bitwise-deterministic and batched columns equal per-vector calls.
+// Every launcher returns cudaGetLastError() so a refused launch is seen.
+#pragma once
+#include <cuda_runtime.h>
+
+#define RT_API extern "C" __attribute__((visibility("default")))
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int WARP = 32;
+
+__device__ __forceinline__ float warp_sum(float v) {
+  // Butterfly: every lane ends with the same, order-fixed sum.
+  for (int off = WARP / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(FULL_MASK, v, off);
+  return v;
+}
+
+__device__ __forceinline__ const float* shard_x(const float* x,
+                                                long long x_stride, int sid,
+                                                int b, int Lx) {
+  return x + (long long)sid * x_stride + (long long)b * Lx;
+}
