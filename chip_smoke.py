@@ -2,7 +2,6 @@
 """Drive the port's sparse device path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # the full run, one card
-    python3 chip_smoke.py --small    # the same phases at 1/8 of the rows
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` and runs three
 phases through the port's entry points (``lower``,
@@ -107,11 +106,27 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def distinct(torch, positions, shared: bool) -> int:
+    """Distinct positions among per-shard index tensors: within each shard,
+    or across all of them when the shards read one shared buffer."""
+    if not positions:
+        return 0
+    if shared:
+        return int(torch.cat(positions).unique().numel())
+    return sum(int(p.unique().numel()) for p in positions)
+
+
 def replays(torch, run, xs):
     """Every kernel launch of one SpMV on ``xs``, as replayable records:
     the kernel call, its plain version on the same inputs, how to compare
     them, the plain version on |inputs| (the |A|·|x| scale), and the bytes
-    and flops the function must move and do."""
+    and flops the launch must move and do on this run's operands.
+
+    Bytes count what the launch reads and writes, once each: the stacked
+    ELL and seg slabs of its shards in full (the kernels walk every slot),
+    the overflow entries, pieces and tiles only up to each shard's real
+    count (past it the kernels read nothing), every gather (x, and the
+    fix-up's psum) at 4 bytes per distinct position, and the output."""
     xb, xg = run.buffers(xs)
     out = []
     for pre, x in (("loc_", xb), ("rem_", xg)):
@@ -125,13 +140,20 @@ def family_replays(torch, run, pre, x, fam, sids):
 
     T, R = run.operands, run.rows_out
     S = T["kid"].numel()
-    B, Lx = x.shape[1], x.shape[2]
+    B = x.shape[1]
     n = sids.numel()
     frac = n / S
-    xbytes = (n if x.shape[0] > 1 else 1) * B * Lx * 4
+    shards = sids.long().tolist()
     ybytes = n * B * R * 4
     ax = torch.abs(x)
     recs = []
+
+    def x_bytes(positions):
+        return 4 * B * distinct(torch, positions, shared=x.shape[0] == 1)
+
+    def real(ptr):
+        """Each listed shard's real entry count, the last of its ranges."""
+        return ptr[sids.long(), ptr.shape[1] - 1].tolist()
 
     def y_out():
         return torch.empty((S, B, R), device=x.device)
@@ -146,24 +168,34 @@ def family_replays(torch, run, pre, x, fam, sids):
     if fam in ("ell", "hyb"):
         a = [T[pre + k] for k in ("ell_data", "ell_cols", "ovf_rows",
                                   "ovf_cols", "ovf_vals", "ovf_ptr")]
+        data, cols, _, ovf_cols, _, ovf_ptr = a
         absa = [torch.abs(a[0])] + a[1:4] + [torch.abs(a[4]), a[5]]
+        n_ovf = real(ovf_ptr)
+        gathered = [torch.cat([cols[s].reshape(-1), ovf_cols[s, :m]])
+                    for s, m in zip(shards, n_ovf)]
         rec("ell_spmv",
             lambda: spmv_ell.ell_spmv(*a, x, sids, out=y_out()),
             lambda: spmv_ell.ell_spmv_plain(*a, x, sids, y_out()),
             lambda: spmv_ell.ell_spmv_plain(*absa, ax, sids, y_out()),
-            frac * nbytes(*a) + xbytes + ybytes + 4 * n,
-            2 * n * B * (a[0].shape[2] * R + a[4].shape[1]))
+            frac * nbytes(data, cols) + 8 * sum(n_ovf)
+            + 4 * n * ovf_ptr.shape[1] + x_bytes(gathered) + ybytes + 4 * n,
+            2 * B * (n * data[0].numel() + sum(n_ovf)))
         return recs
     if fam == "tile":
         a = [T[pre + k] for k in ("tile_data", "tile_xcol", "tile_brow",
                                   "tile_ptr")]
+        data, xcol, _, tile_ptr = a
+        n_tiles = real(tile_ptr)
+        tile_elems = data[0, 0].numel()
+        gathered = [xcol[s, :m].reshape(-1) for s, m in zip(shards, n_tiles)]
         rec("tile_contrib",
             lambda: spmv_tile.tile_contrib(*a, x, sids, out=y_out()),
             lambda: spmv_tile.tile_contrib_plain(*a[:3], x, sids, y_out()),
             lambda: spmv_tile.tile_contrib_plain(torch.abs(a[0]), *a[1:3],
                                                  ax, sids, y_out()),
-            frac * nbytes(*a) + xbytes + ybytes + 4 * n,
-            2 * n * B * a[0][0].numel())
+            4 * sum(n_tiles) * (tile_elems + xcol.shape[2])
+            + 4 * n * tile_ptr.shape[1] + x_bytes(gathered) + ybytes + 4 * n,
+            2 * B * sum(n_tiles) * tile_elems)
         return recs
     # seg and split: stage 1 is seg_psum, then the carry fix-up
     v, c, pcs, ptr = (T[pre + k] for k in ("seg_vals", "seg_cols",
@@ -178,7 +210,8 @@ def family_replays(torch, run, pre, x, fam, sids):
         lambda: spmv_seg.seg_psum_plain(v, c, x, sids, psum_out()),
         lambda: spmv_seg.seg_psum_plain(torch.abs(v), c, ax, sids,
                                         psum_out()),
-        frac * nbytes(v, c) + xbytes + n * B * C * L * 4 + 4 * n,
+        frac * nbytes(v, c) + x_bytes([c[s].reshape(-1) for s in shards])
+        + n * B * C * L * 4 + 4 * n,
         2 * n * B * C * L, by_sid=False)
     psum = spmv_seg.seg_psum(v, c, x, sids)
     ns = 1 if fam == "seg" else run.num_splits[pre]
@@ -189,6 +222,13 @@ def family_replays(torch, run, pre, x, fam, sids):
         shape = (S, B, R) if fam == "seg" else (n, B, ns, R)
         return torch.empty(shape, device=device)
 
+    n_pieces = real(ptr)
+    read_at = []                       # psum[chunk, hi] and psum[chunk, lo-1]
+    for s, m in zip(shards, n_pieces):
+        chunk, lo, hi = pcs[s, :m, :3].long().unbind(1)
+        live = lo <= hi
+        read_at.append(torch.cat([(chunk * L + hi)[live],
+                                  (chunk * L + lo - 1)[live & (lo > 0)]]))
     cpu = [t.cpu() for t in (psum, pcs, ptr, sids, ids)]
     rec("seg_fixup",
         lambda: spmv_seg.seg_fixup(psum, pcs, ptr, sids, ids, num_splits=ns,
@@ -196,8 +236,9 @@ def family_replays(torch, run, pre, x, fam, sids):
         # CUDA's index_add_ has no fixed order: the exact check runs the
         # plain version on the CPU copies of the same inputs
         lambda: spmv_seg.seg_fixup_plain(*cpu, fix_out("cpu")),
-        None, nbytes(psum) + frac * nbytes(pcs, ptr) + 8 * n
-        + n * B * ns * R * 4, 2 * n * B * pcs.shape[1], exact=True,
+        None, 4 * B * distinct(torch, read_at, shared=False)
+        + 20 * sum(n_pieces) + 4 * n * ptr.shape[1] + 8 * n
+        + n * B * ns * R * 4, 2 * B * sum(n_pieces), exact=True,
         by_sid=fam == "seg",
         plain_timed=lambda: spmv_seg.seg_fixup_plain(psum, pcs, ptr, sids,
                                                      ids, fix_out()))
@@ -285,15 +326,14 @@ def measure_kernels(torch, prog, fn, xs, x_prog, device) -> dict:
     return stats
 
 
-def phases(small: bool):
+def phases():
     """(label, matrix builder, [(plan label, plan)]) for the three phases."""
     from repro_torch.core.spmv import SpmvPlan
     from repro_torch.data import matrices as mats
 
-    M = 16384 if small else 131072
+    M = 131072
     return [
-        ("cop20k_A", lambda: mats.make_matrix(
-            "cop20k_A", scale=0.125 if small else 1.0), [
+        ("cop20k_A", lambda: mats.make_matrix("cop20k_A"), [
             ("cop20k_A/seg", SpmvPlan(reordering="bfs", distribution="nonzero",
                                       kernel="seg", exchange="halo",
                                       num_shards=8)),
@@ -328,11 +368,7 @@ def run_program(torch, label, A, plan, singles, block, device) -> dict:
     lower_s = time.perf_counter() - t0
 
     def prog_order(x):
-        if prog.perm is None:
-            return x
-        out = np.empty_like(x)
-        out[prog.perm] = x
-        return out
+        return x if prog.perm is None else P._apply_perm(x, prog.perm)
 
     def on_card(x):
         xs = prog.x_to_device(prog_order(x).astype(np.float32))
@@ -399,8 +435,6 @@ def run_program(torch, label, A, plan, singles, block, device) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--small", action="store_true",
-                    help="1/8 of the rows in every phase (a quick check)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -424,7 +458,7 @@ def main(argv=None) -> int:
 
     rng = np.random.default_rng(args.seed)
     results, totals = {}, {name: 0 for name in _lib.KERNELS}
-    for label, build, plans in phases(args.small):
+    for label, build, plans in phases():
         t0 = time.perf_counter()
         A = build()
         gen_s = time.perf_counter() - t0

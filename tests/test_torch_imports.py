@@ -16,6 +16,10 @@ from repro_torch.core import program as t_program
 from repro_torch.core.sparse_matrix import csr_from_coo
 from repro_torch.core.spmv import SpmvPlan
 
+# Tiny shapes: one intra-op thread, so parallel test workers do not
+# oversubscribe the cores.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]

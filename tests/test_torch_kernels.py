@@ -31,6 +31,10 @@ from repro_torch.core.spmv import SpmvPlan as TPlan
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import spmv_seg, spmv_split
 
+# Tiny shapes: one intra-op thread, so parallel test workers do not
+# oversubscribe the cores.
+torch.set_num_threads(1)
+
 TOL = 1e-5
 
 

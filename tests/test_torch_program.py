@@ -19,6 +19,10 @@ from repro_torch.core.sparse_matrix import CSRMatrix
 from repro_torch.core.spmv import PLAN_EXCHANGES, PLAN_KERNELS
 from repro_torch.core.spmv import SpmvPlan as TPlan
 
+# Tiny shapes: one intra-op thread, so parallel test workers do not
+# oversubscribe the cores.
+torch.set_num_threads(1)
+
 TOL = 2e-4
 
 
