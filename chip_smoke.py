@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # the full run, one card
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` and runs three
-phases through the port's entry points (``lower``,
-``make_program_spmv_fn``, ``gather_b``):
+phases through the executor's entry points (``lower``,
+``make_program_spmv_fn``, ``gather_b``), then a ``kernel_api`` phase
+through the per-format kernel API (``repro_torch.kernels``):
 
 * ``cop20k_A``: the full Table-I size (120,000 rows) under the
   autotuner's pick ``bfs/nonzero/seg/halo`` and under
@@ -13,22 +14,33 @@ phases through the port's entry points (``lower``,
 * ``blocked_band``: 131,072 rows, a heterogeneous tile/ell/hyb/seg/split
   program with mixed exchanges;
 * ``powerlaw_tail``: 131,072 rows under ``split`` (NS from
-  ``split_meta``).
+  ``split_meta``);
+* ``kernel_api``: ``split_spmv`` on ``split_from_csr`` of the
+  powerlaw_tail matrix with NS = 8 and 64, ``tile_spmv`` on
+  ``tile_from_csr`` of the blocked_band matrix, ``seg_spmv``,
+  ``hyb_spmv`` and ``ell_spmv`` on the full cop20k_A formats, and the
+  deprecated ``bell_spmv`` / ``bell_spmm`` on ``csr_to_bcsr`` of a
+  smaller ``blocked_band(16384, 32·16384)`` with (8, 128) blocks: the
+  padded Block-ELL slab grows with the widest block row (59 blocks here,
+  495 MB), so the shim runs at an eighth of the rows.
 
-Each phase answers four single vectors and one (N, 8) block with the
-launch counts zeroed just before and read just after, then checks y
-against the float64 ``csr_matvec`` (|A|·|x|-scaled error <= 2e-4),
-pipeline on/off and two runs bitwise, and each batched column against
-the per-vector call bitwise.  Every kernel launch of one SpMV is then
-replayed against its plain PyTorch version on the same inputs
-(rtol = atol = 1e-5 on |A|·|x|-scaled values; the carry fix-up and the
-combine exactly) and timed with CUDA events beside its memory bound, the
-plain version and a PyTorch library call.  Any failed check raises.
-Exits non-zero, printing no result, without CUDA or without the port.
+Each program or API call answers four single vectors and one (N, 8)
+block with the launch counts zeroed just before and read just after,
+then checks y against the float64 ``csr_matvec`` (|A|·|x|-scaled error
+<= 2e-4), two runs bitwise (and pipeline on/off for the executor), and
+each batched column against the per-vector call bitwise.  Every kernel
+launch of one SpMV is then replayed against its plain PyTorch version
+on the same inputs (rtol = atol = 1e-5 on |A|·|x|-scaled values; the
+carry fix-up and the combine exactly) and timed with CUDA events beside
+its memory bound, the plain version and a PyTorch library call.  Any
+failed check raises.  Exits non-zero, printing no result, without CUDA
+or without the port.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -51,6 +63,8 @@ REPLACES = {
     "seg_fixup": "src/repro/kernels/ops.py:158",
     "split_combine": "src/repro/kernels/spmv_split.py:77",
     "tile_contrib": "src/repro/kernels/spmv_tile.py:91",
+    "split_psum": "src/repro/kernels/spmv_split.py:43",
+    "tile_walk_spmv": "src/repro/kernels/spmv_tile.py:51",
 }
 SOURCE = {
     "ell_spmv": "src/repro_torch/csrc/spmv_ell.cu",
@@ -58,11 +72,14 @@ SOURCE = {
     "seg_fixup": "src/repro_torch/csrc/spmv_seg.cu",
     "split_combine": "src/repro_torch/csrc/spmv_split.cu",
     "tile_contrib": "src/repro_torch/csrc/spmv_tile.cu",
+    "split_psum": "src/repro_torch/csrc/spmv_split.cu",
+    "tile_walk_spmv": "src/repro_torch/csrc/spmv_tile.cu",
 }
 #: The phase whose numbers stand for each kernel in the summary line.
 HEADLINE = {"ell_spmv": "cop20k_A/ell", "seg_psum": "cop20k_A/seg",
             "seg_fixup": "cop20k_A/seg", "split_combine": "powerlaw_tail",
-            "tile_contrib": "blocked_band"}
+            "tile_contrib": "blocked_band", "split_psum": "api/split64",
+            "tile_walk_spmv": "api/tile"}
 
 
 class CheckFailed(AssertionError):
@@ -253,6 +270,14 @@ def family_replays(torch, run, pre, x, fam, sids):
     return recs
 
 
+def csr_tensor(torch, crow, cols, vals, shape, device):
+    warnings.filterwarnings("ignore", message="Sparse")
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(np.asarray(crow, np.int64)),
+        torch.from_numpy(cols.astype(np.int64)),
+        torch.from_numpy(vals.astype(np.float32)), size=shape, device=device)
+
+
 def family_csr(torch, prog, sids, device):
     """The rows of the shards ``sids`` as one torch CSR matrix (the
     library yardstick's operand)."""
@@ -261,19 +286,16 @@ def family_csr(torch, prog, sids, device):
     counts = np.concatenate([np.diff(A.row_ptr[r0:r1 + 1]) for r0, r1 in spans])
     idx = np.concatenate([np.arange(A.row_ptr[r0], A.row_ptr[r1])
                           for r0, r1 in spans])
-    crow = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
-    warnings.filterwarnings("ignore", message="Sparse")
-    return torch.sparse_csr_tensor(
-        torch.from_numpy(crow), torch.from_numpy(A.col_index[idx].astype(
-            np.int64)), torch.from_numpy(A.values[idx].astype(np.float32)),
-        size=(counts.size, A.ncols), device=device)
+    crow = np.concatenate([[0], np.cumsum(counts)])
+    return csr_tensor(torch, crow, A.col_index[idx], A.values[idx],
+                      (counts.size, A.ncols), device)
 
 
-def measure_kernels(torch, prog, fn, xs, x_prog, device) -> dict:
-    """Replay, check and time every kernel launch of one SpMV; returns the
-    per-kernel sums for this program."""
+def measure_records(torch, records) -> dict:
+    """Replay, check and time each launch record; returns the per-kernel
+    sums, bounds still to be set by :func:`set_bounds`."""
     stats = {}
-    for rec in replays(torch, fn, xs):
+    for rec in records:
         k, p = rec["kernel"](), rec["plain"]()
         torch.cuda.synchronize()
         rows = rec["rows"]
@@ -305,6 +327,22 @@ def measure_kernels(torch, prog, fn, xs, x_prog, device) -> dict:
         if rec["library"] is not None:
             s["library_ms"] = (s["library_ms"] or 0.0) + cuda_ms(
                 torch, rec["library"])
+    return stats
+
+
+def set_bounds(stats) -> dict:
+    for s in stats.values():
+        s["bound_ms"] = 1e3 * max(s["bytes"] / HBM_BYTES_PER_S,
+                                  s["ops"] / FP32_FLOPS_PER_S)
+        s["bound_by"] = ("bytes" if s["bytes"] / HBM_BYTES_PER_S
+                         >= s["ops"] / FP32_FLOPS_PER_S else "operations")
+    return stats
+
+
+def measure_kernels(torch, prog, fn, xs, x_prog, device) -> dict:
+    """Replay, check and time every kernel launch of one SpMV; returns the
+    per-kernel sums for this program."""
+    stats = measure_records(torch, replays(torch, fn, xs))
     # library yardsticks: one PyTorch call computing the same function
     lib_of = {"ell_spmv": ("ell", "hyb"), "seg_psum": ("seg", "split"),
               "tile_contrib": ("tile",)}
@@ -318,12 +356,7 @@ def measure_kernels(torch, prog, fn, xs, x_prog, device) -> dict:
                 A = family_csr(torch, prog, fn.families[fam].cpu(), device)
                 total += cuda_ms(torch, lambda A=A: torch.sparse.mm(A, x_col))
         stats[name]["library_ms"] = total
-    for s in stats.values():
-        s["bound_ms"] = 1e3 * max(s["bytes"] / HBM_BYTES_PER_S,
-                                  s["ops"] / FP32_FLOPS_PER_S)
-        s["bound_by"] = ("bytes" if s["bytes"] / HBM_BYTES_PER_S
-                         >= s["ops"] / FP32_FLOPS_PER_S else "operations")
-    return stats
+    return set_bounds(stats)
 
 
 def phases():
@@ -353,12 +386,28 @@ def phases():
     ]
 
 
+def answers_error(label, A, xs, ys) -> float:
+    """The largest |A|·|x|-scaled error of the answers ``ys`` (float64,
+    rows past A's padded out) against ``csr_matvec``; checks shapes and
+    finiteness."""
+    from repro_torch.core.sparse_matrix import csr_matvec
+
+    absA = dataclasses.replace(A, values=np.abs(A.values))
+    err = 0.0
+    for x, got in zip(xs, ys):
+        check(got.shape == (A.nrows,) + x.shape[1:]
+              and np.isfinite(got).all(),
+              f"{label}: output shape {got.shape} or non-finite values")
+        scale = csr_matvec(absA, np.abs(x))
+        err = max(err, float((np.abs(got - csr_matvec(A, x))
+                              / (1.0 + scale)).max()))
+    check(err <= E2E_TOL, f"{label}: scaled error {err} > {E2E_TOL}")
+    return err
+
+
 def run_program(torch, label, A, plan, singles, block, device) -> dict:
     """Answer the requests, check them and measure the kernels."""
-    import dataclasses
-
     from repro_torch.core import program as P
-    from repro_torch.core.sparse_matrix import csr_matvec
     from repro_torch.kernels import _lib
 
     t0 = time.perf_counter()
@@ -386,16 +435,9 @@ def run_program(torch, label, A, plan, singles, block, device) -> dict:
     requests_s = time.perf_counter() - t0
     launches = dict(_lib.launch_counts)
     # -- checks --------------------------------------------------------------
-    absA = dataclasses.replace(A, values=np.abs(A.values))
-    err = 0.0
-    for x, y in zip(singles + [block], ys + [y_block]):
-        got = P.gather_b(prog, y).astype(np.float64)
-        check(got.shape == x.shape and np.isfinite(got).all(),
-              f"{label}: output shape {got.shape} or non-finite values")
-        scale = csr_matvec(absA, np.abs(x))
-        err = max(err, float((np.abs(got - csr_matvec(A, x))
-                              / (1.0 + scale)).max()))
-    check(err <= E2E_TOL, f"{label}: scaled error {err} > {E2E_TOL}")
+    err = answers_error(label, A, singles + [block],
+                        [P.gather_b(prog, y).astype(np.float64)
+                         for y in ys + [y_block]])
     serial = P.make_program_spmv_fn(prog, device=device, pipeline=False)
     pipeline_bitwise = all(torch.equal(serial(xs), y)
                            for xs, y in zip(xs_single + [xs_block],
@@ -433,6 +475,234 @@ def run_program(torch, label, A, plan, singles, block, device) -> dict:
                 kernels=kernels)
 
 
+#: The kernel wrappers the per-format API reaches, by their names in
+#: ``repro_torch.kernels.ops``.
+API_WRAPPERS = ("_ell_kernel", "seg_psum", "seg_fixup", "split_psum",
+                "split_combine", "tile_walk_spmv")
+
+
+@contextlib.contextmanager
+def recorded_launches(ops):
+    """Record every kernel wrapper call the per-format API makes, with its
+    inputs, so each launch can be replayed."""
+    calls = []
+    saved = {name: getattr(ops, name) for name in API_WRAPPERS}
+
+    def recorder(name, fn):
+        def call(*args, **kw):
+            calls.append((name, args, kw))
+            return fn(*args, **kw)
+        return call
+    for name, fn in saved.items():
+        setattr(ops, name, recorder(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def api_record(torch, label, wrapper, a, kw) -> dict:
+    """One recorded launch of the per-format API as a replay record (the
+    fields of :func:`family_replays`' records), bytes counted as there."""
+    from repro_torch.kernels import spmv_ell, spmv_seg, spmv_split, spmv_tile
+
+    dev = a[0].device
+    rec = dict(family=label, pass_="", rows=None, exact=False, library=None)
+
+    def fresh(shape, device=dev):
+        return lambda: torch.empty(shape, device=device)
+
+    if wrapper == "_ell_kernel":
+        data, cols, orow, ocol, oval, optr, x, sids = a
+        S, R, _ = data.shape
+        B = x.shape[1]
+        m = int(optr[0, R])
+        out = fresh((S, B, R))
+        gathered = torch.cat([cols.reshape(-1), ocol[0, :m]])
+        rec.update(
+            name="ell_spmv",
+            kernel=lambda: spmv_ell.ell_spmv(*a, out=out()),
+            plain=lambda: spmv_ell.ell_spmv_plain(*a, out()),
+            scale=lambda: spmv_ell.ell_spmv_plain(
+                data.abs(), cols, orow, ocol, oval.abs(), optr, x.abs(), sids,
+                out()),
+            bytes=nbytes(data, cols) + 8 * m + 4 * (R + 1)
+            + 4 * B * distinct(torch, [gathered], shared=True)
+            + 4 * B * R + 4,
+            ops=2 * B * (data.numel() + m))
+    elif wrapper in ("seg_psum", "split_psum"):
+        vals, cols, x = a[:3]
+        B = x.shape[-2]
+        mod = spmv_seg if wrapper == "seg_psum" else spmv_split
+        kernel, plain = getattr(mod, wrapper), getattr(mod, wrapper + "_plain")
+        rest = a[3:]                    # seg_psum's sids
+        out = fresh(((len(rest[0]),) if rest else ()) + (B,)
+                    + tuple(vals.shape[len(rest):]))
+        rec.update(
+            name=wrapper, kernel=lambda: kernel(*a),
+            plain=lambda: plain(*a, out()),
+            scale=lambda: plain(vals.abs(), cols, x.abs(), *rest, out()),
+            bytes=nbytes(vals, cols)
+            + 4 * B * distinct(torch, [cols.reshape(-1)], shared=True)
+            + 4 * B * vals.numel() + 4 * len(rest),
+            ops=2 * B * vals.numel())
+    elif wrapper == "seg_fixup":
+        psum, pcs, ptr = a[:3]
+        _, B, _, L = psum.shape
+        R, ns = ptr.shape[1] - 1, kw["num_splits"]
+        m = int(ptr[0, R])
+        chunk, lo, hi = pcs[0, :m, :3].long().unbind(1)
+        live = lo <= hi
+        read_at = torch.cat([(chunk * L + hi)[live],
+                             (chunk * L + lo - 1)[live & (lo > 0)]])
+        shape = kw["out"].shape
+        cpu = [t.cpu() for t in a]
+        rec.update(
+            name="seg_fixup", exact=True,
+            kernel=lambda: spmv_seg.seg_fixup(*a, num_splits=ns,
+                                              out=fresh(shape)()),
+            # CUDA's index_add_ has no fixed order: the exact check runs
+            # the plain version on the CPU copies of the same inputs
+            plain=lambda: spmv_seg.seg_fixup_plain(*cpu,
+                                                   fresh(shape, "cpu")()),
+            plain_timed=lambda: spmv_seg.seg_fixup_plain(*a, fresh(shape)()),
+            scale=None,
+            bytes=4 * B * distinct(torch, [read_at], shared=False) + 20 * m
+            + 4 * (R + 1) + 8 + 4 * B * ns * R,
+            ops=2 * B * m)
+    elif wrapper == "split_combine":
+        part, sids = a
+        _, B, ns, R = part.shape
+        out = fresh(kw["out"].shape)
+        rec.update(
+            name="split_combine", exact=True, scale=None,
+            kernel=lambda: spmv_split.split_combine(part, sids, out=out()),
+            plain=lambda: spmv_split.split_combine_plain(part, sids, out()),
+            bytes=nbytes(part) + 4 * B * R + 4, ops=B * ns * R,
+            library=lambda: part.sum(dim=2))
+    elif wrapper == "tile_walk_spmv":
+        data, tcols, tptr, x = a
+        T, bm, bn = data.shape
+        B, n = x.shape
+        out = fresh((B, (tptr.numel() - 1) * bm))
+        lanes = int((n - tcols.unique().long() * bn).clamp(max=bn).sum())
+        rec.update(
+            name="tile_walk_spmv",
+            kernel=lambda: spmv_tile.tile_walk_spmv(*a),
+            plain=lambda: spmv_tile.tile_walk_spmv_plain(*a, out()),
+            scale=lambda: spmv_tile.tile_walk_spmv_plain(
+                data.abs(), tcols, tptr, x.abs(), out()),
+            bytes=nbytes(data, tcols, tptr) + 4 * B * lanes
+            + 4 * B * (tptr.numel() - 1) * bm,
+            ops=2 * B * data.numel())
+    else:
+        raise CheckFailed(f"{label}: no replay for {wrapper}")
+    rec.setdefault("plain_timed", rec["plain"])
+    return rec
+
+
+def api_cases(torch, matrices, device):
+    """(label, matrix, call) for the kernel_api phase, one at a time: each
+    format is built on the host and its arrays moved to the card once;
+    ``call(x)`` then runs the API on them for x (N,) or (N, B) on the
+    card."""
+    from repro_torch.core.sparse_matrix import csr_to_bcsr, csr_to_ell
+    from repro_torch.data import matrices as mats
+    from repro_torch.kernels import ops
+
+    def card(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for a in arrays]
+
+    tail = matrices["powerlaw_tail"]
+    for ns in (8, 64):
+        spl = ops.split_from_csr(tail, ns)
+        arrays = card(spl.vals, spl.cols, spl.rows, spl.piece_split,
+                      spl.piece_chunk, spl.piece_lo, spl.piece_hi,
+                      spl.piece_row)
+        yield f"api/split{ns}", tail, lambda x, a=arrays: ops.split_spmv(
+            a, x, num_rows=tail.nrows, device=device)
+    band = matrices["blocked_band"]
+    t = ops.tile_from_csr(band)
+    data, tcols, tptr = card(t.data, t.tile_cols, t.tile_ptr)
+    t = dataclasses.replace(t, data=data, tile_cols=tcols, tile_ptr=tptr)
+    yield "api/tile", band, lambda x: ops.tile_spmv(t, x, device=device)
+    cop = matrices["cop20k_A"]
+    seg = ops.seg_from_csr(cop)
+    arrays = card(seg.vals, seg.cols, seg.rows, seg.piece_chunk, seg.piece_lo,
+                  seg.piece_hi, seg.piece_row)
+    yield "api/seg", cop, lambda x: ops.seg_spmv(arrays, x,
+                                                 num_rows=cop.nrows,
+                                                 device=device)
+    hyb = card(*(getattr(ops.hyb_from_csr(cop), f) for f in (
+        "data", "cols", "overflow_rows", "overflow_cols", "overflow_vals")))
+    yield "api/hyb", cop, lambda x: ops.hyb_spmv(*hyb, x, device=device)
+    ell = csr_to_ell(cop)
+    ell = card(ell.data, ell.cols)
+    yield "api/ell", cop, lambda x: ops.ell_spmv(*ell, x, device=device)
+    small = mats.blocked_band(16384, 32 * 16384, seed=0)
+    bell = card(*ops.bell_from_bcsr(csr_to_bcsr(small, (8, 128))))
+    yield "api/bell", small, lambda x: (
+        ops.bell_spmv if x.dim() == 1 else ops.bell_spmm)(*bell, x,
+                                                          device=device)
+
+
+def run_api_call(torch, label, A, call, singles, block, device) -> dict:
+    """Answer the requests through one per-format API call, check them and
+    measure the kernels each call launches."""
+    from repro_torch.kernels import _lib, ops
+
+    xs = [torch.from_numpy(x.astype(np.float32)).to(device) for x in singles]
+    xblk = torch.from_numpy(block.astype(np.float32)).to(device)
+    torch.cuda.synchronize()
+    # -- the main path: counts zeroed just before, read just after --------
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    ys = [call(x) for x in xs]
+    y_block = call(xblk)
+    torch.cuda.synchronize()
+    requests_s = time.perf_counter() - t0
+    launches = dict(_lib.launch_counts)
+    # -- checks (rows past A's, ELL or block padding, must be zero) -------
+    for y in ys + [y_block]:
+        check(not y[A.nrows:].any(), f"{label}: padded rows are not zero")
+    err = answers_error(label, A, singles + [block],
+                        [y[:A.nrows].double().cpu().numpy()
+                         for y in ys + [y_block]])
+    rerun_bitwise = all(torch.equal(call(x), y)
+                        for x, y in zip(xs + [xblk], ys + [y_block]))
+    check(rerun_bitwise, f"{label}: two runs differ")
+    columns_bitwise = all(torch.equal(y_block[:, b],
+                                      call(xblk[:, b].contiguous()))
+                          for b in range(xblk.shape[1]))
+    check(columns_bitwise, f"{label}: a batched column differs from the "
+                           f"per-vector call")
+    # -- time per call and per kernel -----------------------------------------
+    call_ms = cuda_ms(torch, lambda: call(xs[0]), 10)
+    block_ms = cuda_ms(torch, lambda: call(xblk), 5)
+    with recorded_launches(ops) as calls:
+        call(xs[0])
+    kernels = measure_records(torch, [api_record(torch, label, *c)
+                                      for c in calls])
+    A_card = csr_tensor(torch, A.row_ptr, A.col_index, A.values, A.shape,
+                        device)
+    for name in ("ell_spmv", "seg_psum", "split_psum", "tile_walk_spmv"):
+        if name in kernels:
+            kernels[name]["library_ms"] = cuda_ms(
+                torch, lambda: torch.sparse.mm(A_card, xs[0][:, None]))
+    set_bounds(kernels)
+    for name, s in kernels.items():
+        s["launches"] = launches[name]
+    for name, count in launches.items():
+        if count and name not in kernels:
+            raise CheckFailed(f"{label}: {name} launched but not replayed")
+    return dict(phase=label, rows=A.nrows, nnz=A.nnz, requests_s=requests_s,
+                call_ms=call_ms, block8_ms=block_ms, max_scaled_err=err,
+                rerun_bitwise=rerun_bitwise, columns_bitwise=columns_bitwise,
+                launches=launches, kernels=kernels)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -457,7 +727,7 @@ def main(argv=None) -> int:
                           "ptxas", "").splitlines() if "Used" in ln]}))
 
     rng = np.random.default_rng(args.seed)
-    results, totals = {}, {name: 0 for name in _lib.KERNELS}
+    results, totals, matrices = {}, {name: 0 for name in _lib.KERNELS}, {}
     for label, build, plans in phases():
         t0 = time.perf_counter()
         A = build()
@@ -472,6 +742,18 @@ def main(argv=None) -> int:
             for name, count in r["launches"].items():
                 totals[name] += count
             print(json.dumps(r))
+        matrices[label] = A
+    # the per-format kernel API; the bell_* shims warn once by design
+    warnings.filterwarnings("ignore", message="bell_",
+                            category=DeprecationWarning)
+    for label, A, call in api_cases(torch, matrices, device):
+        singles = [rng.standard_normal(A.ncols) for _ in range(4)]
+        block = rng.standard_normal((A.ncols, 8))
+        r = run_api_call(torch, label, A, call, singles, block, device)
+        results[label] = r
+        for name, count in r["launches"].items():
+            totals[name] += count
+        print(json.dumps(r))
     summary = []
     for name in _lib.KERNELS:
         check(totals[name] > 0, f"{name} was never launched on the main path")

@@ -37,6 +37,7 @@ from .sparse_matrix import CSRMatrix, ELL_LANE, ELL_SUBLANE, EllMatrix, \
     SegMatrix, SplitMatrix, TileMatrix, csr_to_ell
 from .spmv import PLAN_KERNELS, SpmvPlan
 from ..kernels import ops as kops
+from ..kernels.ops import resolve_device
 
 __all__ = ["ShardStage", "SpmvProgram", "lower", "program_from_arrays",
            "resolve_device",
@@ -587,17 +588,6 @@ def _round_up(x: int, m: int) -> int:
 # device executor
 # --------------------------------------------------------------------------
 
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on; CUDA unless the caller asks for
-    the CPU.  Raises where CUDA was asked for and is absent: nothing falls
-    back to the CPU quietly."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "the kernels' plain PyTorch versions on the CPU")
-    return dev
-
-
 def _exchange_index(program: SpmvProgram, ops: dict) -> np.ndarray:
     """(Sx, Lx) int64 positions into the flat (S * per) layout-order x that
     build the remote pass's buffers.  With a halo reader: row p is
@@ -652,24 +642,23 @@ def make_program_spmv_fn(program: SpmvProgram, *, device="cuda",
                         device=dev)
         for name, sids in families.items():
             if name in ("ell", "hyb"):        # ell shards: empty ovf_ptr
-                kops.hyb_spmv(T[pre + "ell_data"], T[pre + "ell_cols"],
-                              T[pre + "ovf_rows"], T[pre + "ovf_cols"],
-                              T[pre + "ovf_vals"], T[pre + "ovf_ptr"], xbuf,
-                              sids, out=y)
+                kops.hyb_stacked(T[pre + "ell_data"], T[pre + "ell_cols"],
+                                 T[pre + "ovf_rows"], T[pre + "ovf_cols"],
+                                 T[pre + "ovf_vals"], T[pre + "ovf_ptr"],
+                                 xbuf, sids, out=y)
             elif name == "seg":
-                kops.seg_spmv(T[pre + "seg_vals"], T[pre + "seg_cols"],
-                              T[pre + "seg_pieces"], T[pre + "piece_ptr"],
-                              xbuf, sids, out=y)
+                kops.seg_stacked(T[pre + "seg_vals"], T[pre + "seg_cols"],
+                                 T[pre + "seg_pieces"], T[pre + "piece_ptr"],
+                                 xbuf, sids, out=y)
             elif name == "split":
-                kops.split_flat_spmv(T[pre + "seg_vals"], T[pre + "seg_cols"],
-                                     T[pre + "seg_pieces"],
-                                     T[pre + "piece_ptr"], xbuf, sids,
-                                     num_splits=num_splits, out=y)
+                kops.split_stacked(T[pre + "seg_vals"], T[pre + "seg_cols"],
+                                   T[pre + "seg_pieces"],
+                                   T[pre + "piece_ptr"], xbuf, sids,
+                                   num_splits=num_splits, out=y)
             else:
-                kops.tile_flat_spmv(T[pre + "tile_data"],
-                                    T[pre + "tile_xcol"],
-                                    T[pre + "tile_brow"], T[pre + "tile_ptr"],
-                                    xbuf, sids, out=y)
+                kops.tile_stacked(T[pre + "tile_data"], T[pre + "tile_xcol"],
+                                  T[pre + "tile_brow"], T[pre + "tile_ptr"],
+                                  xbuf, sids, out=y)
         return y
 
     def local_buffer(x_shards):

@@ -2,8 +2,9 @@
 
 The port's own copy of the host formats of ``repro.core.sparse_matrix``:
 CSR as the canonical host format, padded ELL (+ COO overflow = HYB), the
-nonzero-balanced segmented stream (SEG), its split-nnz variant (SPLIT)
-and the bitmask-tiled layout (TILE).  The arithmetic is the reference's
+nonzero-balanced segmented stream (SEG), its split-nnz variant (SPLIT),
+the bitmask-tiled layout (TILE) and block CSR (BCSR, which only the
+deprecated Block-ELL shims take).  The arithmetic is the reference's
 exactly, so every array built here is bitwise-equal to the one the JAX
 package builds from the same CSR.
 """
@@ -17,6 +18,7 @@ import numpy as np
 __all__ = [
     "ELL_LANE",
     "ELL_SUBLANE",
+    "BcsrMatrix",
     "CSRMatrix",
     "EllMatrix",
     "SegMatrix",
@@ -24,6 +26,7 @@ __all__ = [
     "TileMatrix",
     "csr_from_coo",
     "csr_matvec",
+    "csr_to_bcsr",
     "csr_to_dense",
     "csr_to_ell",
     "csr_to_tile",
@@ -109,6 +112,28 @@ class EllMatrix:
         dense_slots = self.data.shape[0] * self.data.shape[1]
         ell_nnz = self.nnz - self.overflow_vals.shape[0]
         return 1.0 - ell_nnz / max(dense_slots, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class BcsrMatrix:
+    """Block CSR with dense (bm, bn) blocks: the operand of the deprecated
+    Block-ELL shims (``kernels.ops.bell_from_bcsr``)."""
+
+    shape: Tuple[int, int]          # unpadded logical shape
+    block_shape: Tuple[int, int]
+    blocks: np.ndarray              # (nblocks, bm, bn) float
+    block_cols: np.ndarray          # (nblocks,) int32
+    block_row_ptr: np.ndarray       # (Mb+1,) int64
+    nnz: int                        # scalar non-zeros represented
+
+    @property
+    def nblocks(self) -> int:
+        return int(self.blocks.shape[0])
+
+    @property
+    def density_in_blocks(self) -> float:
+        bm, bn = self.block_shape
+        return self.nnz / max(self.nblocks * bm * bn, 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,6 +229,11 @@ class TileMatrix:
     @property
     def fill_ratio(self) -> float:
         return self.nnz / max(self.num_tiles * self.bm * self.bn, 1)
+
+    @property
+    def max_tiles_per_block_row(self) -> int:
+        counts = np.diff(self.tile_ptr)
+        return int(counts.max()) if counts.size else 0
 
     def occupancy(self) -> np.ndarray:
         """Unpacked (T, bm, bn) boolean occupancy from the bitmask."""
@@ -335,3 +365,31 @@ def hyb_cap_width(row_nnz: np.ndarray, lane: int = ELL_LANE) -> int:
         return lane
     p95 = float(np.percentile(row_nnz, 95))
     return _round_up(max(int(np.ceil(p95)), 1), lane)
+
+
+def csr_to_bcsr(csr: CSRMatrix,
+                block_shape: Tuple[int, int] = (128, 128)) -> BcsrMatrix:
+    """Convert CSR -> block CSR over the occupied (bm, bn) blocks (one
+    all-zero block when the matrix is empty)."""
+    bm, bn = block_shape
+    M, N = csr.shape
+    Mb = (M + bm - 1) // bm
+    rows = np.repeat(np.arange(M), csr_row_nnz(csr))
+    brow = rows // bm
+    bcol = csr.col_index // bn
+    key = brow.astype(np.int64) * ((N + bn - 1) // bn) + bcol
+    uniq, inverse = np.unique(key, return_inverse=True)
+    nblocks = uniq.shape[0]
+    blocks = np.zeros((max(nblocks, 1), bm, bn), dtype=np.float32)
+    if nblocks:
+        lr = (rows % bm).astype(np.int64)
+        lc = (csr.col_index % bn).astype(np.int64)
+        np.add.at(blocks, (inverse, lr, lc), csr.values.astype(np.float32))
+    ub_row = (uniq // ((N + bn - 1) // bn)).astype(np.int64)
+    ub_col = (uniq % ((N + bn - 1) // bn)).astype(np.int32)
+    block_row_ptr = np.zeros(Mb + 1, dtype=np.int64)
+    np.add.at(block_row_ptr, ub_row + 1, 1)
+    np.cumsum(block_row_ptr, out=block_row_ptr)
+    return BcsrMatrix(shape=csr.shape, block_shape=block_shape, blocks=blocks,
+                      block_cols=ub_col, block_row_ptr=block_row_ptr,
+                      nnz=csr.nnz)

@@ -1,12 +1,14 @@
 """The SpMV plan: layout x distribution x reordering x exchange x kernel.
 
-Host copy of ``repro.core.spmv.SpmvPlan`` and its spellings.  The plan is
-given explicitly in this port: the autotuner (``SpmvPlan.auto``) is not
-ported yet and raises.
+Host copy of ``repro.core.spmv.SpmvPlan`` and its spellings, and of the
+warn-once helper of the deprecated shims.  The plan is given explicitly
+in this port: the autotuner (``SpmvPlan.auto``) is not ported yet and
+raises.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Literal
 
 __all__ = ["PLAN_KERNELS", "PLAN_EXCHANGES", "SpmvPlan"]
@@ -89,3 +91,17 @@ class SpmvPlan:
             "SpmvPlan.auto needs the autotuner (plan.autotune, the cost "
             "oracle and the Emu probe), which a later port slice brings; "
             "pass an explicit SpmvPlan")
+
+
+#: Shims that already warned this process: each deprecated shim emits its
+#: DeprecationWarning exactly once, so a tight legacy loop is not spammed.
+_DEPRECATION_WARNED: set = set()
+
+
+def _warn_deprecated(name: str, replacement: str) -> None:
+    if name in _DEPRECATION_WARNED:
+        return
+    _DEPRECATION_WARNED.add(name)
+    warnings.warn(
+        f"{name} is deprecated; use {replacement} instead",
+        DeprecationWarning, stacklevel=3)

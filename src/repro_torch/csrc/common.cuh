@@ -32,3 +32,31 @@ __device__ __forceinline__ const float* shard_x(const float* x,
                                                 int b, int Lx) {
   return x + (long long)sid * x_stride + (long long)b * Lx;
 }
+
+// Inclusive prefix sum of one value per thread over a block of L threads
+// (L a multiple of 32, at most 1024): a shuffle scan inside each warp,
+// then one pass of warp 0 over the warp totals in `warp_tot` (shared,
+// WARP floats).  The order is fixed, so the result is deterministic.
+// Every thread of the block must call it.
+__device__ __forceinline__ float block_inclusive_scan(float v,
+                                                      float* warp_tot) {
+  const int l = threadIdx.x, lane = l % WARP, warp = l / WARP;
+  for (int d = 1; d < WARP; d <<= 1) {
+    const float t = __shfl_up_sync(FULL_MASK, v, d);
+    if (lane >= d) v += t;
+  }
+  if (lane == WARP - 1) warp_tot[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    const int nw = blockDim.x / WARP;
+    float t = lane < nw ? warp_tot[lane] : 0.f;
+    for (int d = 1; d < WARP; d <<= 1) {
+      const float u = __shfl_up_sync(FULL_MASK, t, d);
+      if (lane >= d) t += u;
+    }
+    if (lane < nw) warp_tot[lane] = t;
+  }
+  __syncthreads();
+  if (warp > 0) v += warp_tot[warp - 1];
+  return v;
+}

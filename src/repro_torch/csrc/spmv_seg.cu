@@ -17,10 +17,11 @@
 // block and the cross-chunk carry is the fix-up's job.
 //
 // Design: seg_psum runs one block of L threads per (chunk, column b):
-// each thread forms one product, a warp scan with shuffles takes the
-// inclusive prefix inside each warp, and one pass of warp 0 over the
-// warp totals (in shared memory) adds the carry between warps.  The
-// order is fixed, so the result is deterministic.  seg_fixup runs one
+// each thread forms one product, and block_inclusive_scan (common.cuh,
+// shared with split_psum) takes a warp scan with shuffles inside each
+// warp, then one pass of warp 0 over the warp totals (in shared memory)
+// adds the carry between warps.  The order is fixed, so the result is
+// deterministic.  seg_fixup runs one
 // thread per output (row r, split t): the row's pieces are a contiguous
 // run of the row-ordered piece table (range from the host table
 // piece_ptr, (S, R+1), built with searchsorted over the shard's real
@@ -43,27 +44,11 @@ __global__ void seg_psum_kernel(const float* __restrict__ vals,
   __shared__ float warp_tot[WARP];
   const int k = blockIdx.x / C, c = blockIdx.x % C, b = blockIdx.y;
   const int sid = sids[k];
-  const int l = threadIdx.x, lane = l % WARP, warp = l / WARP;
+  const int l = threadIdx.x;
   const float* xv = shard_x(x, x_stride, sid, b, Lx);
   const long long off = ((long long)sid * C + c) * L + l;
-  float v = __fmul_rn(vals[off], xv[cols[off]]);
-  for (int d = 1; d < WARP; d <<= 1) {
-    const float t = __shfl_up_sync(FULL_MASK, v, d);
-    if (lane >= d) v += t;
-  }
-  if (lane == WARP - 1) warp_tot[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    const int nw = L / WARP;
-    float t = lane < nw ? warp_tot[lane] : 0.f;
-    for (int d = 1; d < WARP; d <<= 1) {
-      const float u = __shfl_up_sync(FULL_MASK, t, d);
-      if (lane >= d) t += u;
-    }
-    if (lane < nw) warp_tot[lane] = t;
-  }
-  __syncthreads();
-  if (warp > 0) v += warp_tot[warp - 1];
+  const float v = block_inclusive_scan(__fmul_rn(vals[off], xv[cols[off]]),
+                                       warp_tot);
   psum[(((long long)k * B + b) * C + c) * L + l] = v;
 }
 

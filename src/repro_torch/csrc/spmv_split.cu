@@ -1,20 +1,45 @@
-// Split-nnz SpMV, stage 2: reduce the per-split partial row sums.
+// Split-nnz SpMV: stage 1's per-chunk prefix sums over the split slab,
+// and stage 2, the reduction of the per-split partial row sums.
 //
-// Replaces: src/repro/kernels/spmv_split.py split_combine
-// (_split_combine_kernel, pallas_call at :84).  Stage 1 of the device path
-// is seg_psum + seg_fixup with num_splits = NS (spmv_seg.cu), as on the
-// reference's device path (src/repro/kernels/ops.py:339-343).
+// Replaces: src/repro/kernels/spmv_split.py split_psum
+// (_split_psum_kernel, pallas_call at :58) and split_combine
+// (_split_combine_kernel, pallas_call at :84).  Between them the carry
+// fix-up runs as seg_fixup with num_splits = NS (spmv_seg.cu), on the
+// reference's device path (src/repro/kernels/ops.py:339-343) as on its
+// host op split_spmv (ops.py:310-315, the jnp _split_fixup :257).
 //
-// y[s, b, r] = sum_{t < NS} part[k, b, t, r]      (t in split order)
+// split_psum:    psum[b, s, c, l] = sum_{j <= l} vals[s, c, j] * x[b, cols[s, c, j]]
+// split_combine: y[s, b, r] = sum_{t < NS} part[k, b, t, r]   (t in split order)
 //
-// What bounds it on the H100: bytes.  It reads NS * R partials and
-// writes R values, one add per 4 bytes read.  The TPU kernel summed a
-// (NS, 128) VMEM tile per grid step; here one thread owns one row and
-// walks the split axis, so neighbouring threads read neighbouring rows
-// (coalesced) and the sum order is fixed: deterministic, no atomics.
+// What bounds them on the H100: bytes.  split_psum reads 8 bytes of
+// vals + cols, gathers 4 bytes of x and writes 4 bytes per element for
+// one multiply and one add; split_combine reads NS * R partials and
+// writes R values, one add per 4 bytes read.
+//
+// Design.  The TPU's 2-D (NS, Cs / tc) grid existed so that a slab of
+// few chunks still filled the grid steps; on Hopper every chunk of the
+// (NS * Cs, L) view is one independent block of L threads anyway, so
+// split_psum is seg_psum's scan (block_inclusive_scan, common.cuh) over
+// that view with one shared x: Cs needs no sublane padding and NS no
+// divisor.  split_combine: one thread owns one row and walks the split
+// axis, so neighbouring threads read neighbouring rows (coalesced) and
+// the sum order is fixed: deterministic, no atomics.
 #include "common.cuh"
 
 namespace {
+
+__global__ void split_psum_kernel(const float* __restrict__ vals,
+                                  const int* __restrict__ cols,
+                                  const float* __restrict__ x, int C, int L,
+                                  int n, float* __restrict__ psum) {
+  __shared__ float warp_tot[WARP];
+  const int c = blockIdx.x, b = blockIdx.y;
+  const long long off = (long long)c * L + threadIdx.x;
+  const float* xv = x + (long long)b * n;
+  const float v = block_inclusive_scan(__fmul_rn(vals[off], xv[cols[off]]),
+                                       warp_tot);
+  psum[((long long)b * C + c) * L + threadIdx.x] = v;
+}
 
 __global__ void split_combine_kernel(const float* __restrict__ part,
                                      const int* __restrict__ sids, int n_sids,
@@ -30,6 +55,17 @@ __global__ void split_combine_kernel(const float* __restrict__ part,
 }
 
 }  // namespace
+
+// C = NS * Cs chunks of L elements; x is (B, n), psum (B, C, L).
+RT_API int rt_split_psum(const float* vals, const int* cols, const float* x,
+                         int C, int L, int n, int B, float* psum,
+                         void* stream) {
+  if (C == 0 || B == 0) return 0;
+  dim3 grid((unsigned)C, (unsigned)B);
+  split_psum_kernel<<<grid, L, 0, (cudaStream_t)stream>>>(vals, cols, x, C,
+                                                          L, n, psum);
+  return (int)cudaGetLastError();
+}
 
 RT_API int rt_split_combine(const float* part, const int* sids, int n_sids,
                             int NS, int R, int B, float* y, void* stream) {

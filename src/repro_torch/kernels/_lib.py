@@ -26,7 +26,7 @@ __all__ = ["KERNELS", "launch_counts", "reset_launch_counts", "lib",
 
 #: Every kernel the library holds, by wrapper name.
 KERNELS = ("ell_spmv", "seg_psum", "seg_fixup", "split_combine",
-           "tile_contrib")
+           "tile_contrib", "split_psum", "tile_walk_spmv")
 
 launch_counts = {name: 0 for name in KERNELS}
 
@@ -43,9 +43,11 @@ _SIGNATURES = {
                     _P, _P),
     "rt_seg_psum": (_P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _P, _P),
     "rt_seg_fixup": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    "rt_split_psum": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
     "rt_split_combine": (_P, _P, _I, _I, _I, _I, _P, _P),
     "rt_tile_spmv": (_P, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _I,
                      _P, _P),
+    "rt_tile_walk_spmv": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
 }
 
 _lib = None

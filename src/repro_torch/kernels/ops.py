@@ -1,14 +1,25 @@
-"""Format builders (host, numpy) and the device-path ops of the port.
+"""Format builders (host, numpy), the per-format kernel API, and the
+executor's S-stacked device ops.
 
-Counterpart of ``repro.kernels.ops``.  The builders are the reference's
-arithmetic exactly, so they produce bitwise-equal slabs.  The device-path
-ops run one kernel family over the listed shards of the S-stacked
-operands the executor builds:
+Counterpart of ``repro.kernels.ops``.
 
-* x is the batch-major buffer (S or 1, B, Lx) and the result is written
-  into ``out`` (S, B, R), rows of the listed shards only;
-* each op launches the port's CUDA kernels for CUDA tensors and runs the
-  kernels' plain PyTorch versions for CPU tensors.
+* The builders are the reference's arithmetic exactly, so they produce
+  bitwise-equal slabs.
+* The per-format kernel API has the reference's names and arguments:
+  one matrix in one format (:func:`seg_from_csr`, :func:`split_from_csr`,
+  :func:`hyb_from_csr`, :func:`tile_from_csr`, or its raw arrays), and x
+  of shape (N,) or (N, B).  Each op runs on ``device`` (default
+  ``"cuda"``, which raises without a GPU): host arrays go to that device,
+  CUDA tensors launch the port's kernels, CPU tensors run the kernels'
+  plain PyTorch versions.  The TPU-only keywords (``use_kernel``,
+  ``interpret``, ``tile_m``, ``tile_w``, ``tile_c``, ``tile_b``) are not
+  carried over: the port has one execution path per device, and the
+  ``*_ref`` functions (:mod:`repro_torch.kernels.ref`) are the oracles.
+  Column b of an (N, B) call equals the call on ``x[:, b]`` bitwise.
+* The stacked ops (``*_stacked``) run one kernel family over the listed
+  shards of the S-stacked operands the executor builds: x is the
+  batch-major buffer (S or 1, B, Lx) and the result is written into
+  ``out`` (S, B, R), rows of the listed shards only.
 """
 from __future__ import annotations
 
@@ -19,14 +30,22 @@ from ..core.partition import nnz_chunk_starts
 from ..core.sparse_matrix import ELL_LANE, ELL_SUBLANE, EllMatrix, \
     SegMatrix, SplitMatrix, TileMatrix, csr_row_nnz, csr_to_ell, \
     csr_to_tile, hyb_cap_width
+from ..core.spmv import _warn_deprecated
+# the oracles this module re-exports, as the reference's ops does
+from .ref import bell_spmm_ref, bell_spmv_ref, ell_spmv_ref, seg_spmv_ref, \
+    split_spmv_ref, tile_flat_spmv_ref, tile_spmv_ref
 from .spmv_ell import ell_spmv as _ell_kernel
 from .spmv_seg import seg_fixup, seg_psum
-from .spmv_split import split_combine
-from .spmv_tile import tile_contrib
+from .spmv_split import split_combine, split_psum
+from .spmv_tile import tile_contrib, tile_walk_spmv
 
-__all__ = ["SEG_CHUNK", "hyb_from_csr", "seg_from_csr", "split_from_csr",
-           "tile_from_csr", "ell_spmv", "hyb_spmv", "seg_spmv",
-           "split_flat_spmv", "tile_flat_spmv"]
+__all__ = ["SEG_CHUNK", "resolve_device", "hyb_from_csr", "seg_from_csr",
+           "split_from_csr", "tile_from_csr", "bell_from_bcsr",
+           "ell_spmv", "hyb_spmv", "seg_spmv", "split_spmv",
+           "split_flat_spmv", "tile_spmv", "tile_flat_spmv", "bell_spmv",
+           "bell_spmm", "ell_spmv_ref", "seg_spmv_ref", "split_spmv_ref",
+           "tile_spmv_ref", "ell_stacked", "hyb_stacked", "seg_stacked",
+           "split_stacked", "tile_stacked"]
 
 #: Default elements per segmented chunk (lane-aligned).
 SEG_CHUNK = 512
@@ -136,8 +155,239 @@ def tile_from_csr(csr, *, bm: int | None = None,
                        bn=ELL_LANE if bn is None else bn)
 
 
+def bell_from_bcsr(bcsr) -> tuple[np.ndarray, np.ndarray]:
+    """Deprecated: BcsrMatrix -> padded Block-ELL ``(blocks, bcols)``,
+    K = the most blocks of a block row; padded slots hold zero blocks and
+    block column 0.  Build a TileMatrix with :func:`tile_from_csr`
+    instead."""
+    _warn_deprecated("bell_from_bcsr", "repro_torch.kernels.ops.tile_from_csr")
+    Mb = bcsr.block_row_ptr.shape[0] - 1
+    bm, bn = bcsr.block_shape
+    per_row = np.diff(bcsr.block_row_ptr)
+    K = max(int(per_row.max()) if Mb else 1, 1)
+    blocks = np.zeros((Mb, K, bm, bn), dtype=bcsr.blocks.dtype)
+    bcols = np.zeros((Mb, K), dtype=np.int32)
+    for r in range(Mb):
+        lo, hi = int(bcsr.block_row_ptr[r]), int(bcsr.block_row_ptr[r + 1])
+        blocks[r, : hi - lo] = bcsr.blocks[lo:hi]
+        bcols[r, : hi - lo] = bcsr.block_cols[lo:hi]
+    return blocks, bcols
+
+
 # --------------------------------------------------------------------------
-# device-path ops (one kernel family over the listed shards)
+# the per-format kernel API (one matrix, x (N,) or (N, B))
+# --------------------------------------------------------------------------
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on; CUDA unless the caller asks for
+    the CPU.  Raises where CUDA was asked for and is absent: nothing falls
+    back to the CPU quietly."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "the kernels' plain PyTorch versions on the CPU")
+    return dev
+
+
+def _on(dev, a, dtype=torch.float32):
+    return torch.as_tensor(a, dtype=dtype, device=dev).contiguous()
+
+
+def _idx(dev, a):
+    return _on(dev, a, torch.int32)
+
+
+def _x_in(dev, x):
+    """x (N,) or (N, B) -> the batch-major (B, N) buffer, and whether it
+    was batched."""
+    x = _on(dev, x)
+    if x.dim() not in (1, 2):
+        raise ValueError(f"x must be (N,) or (N, B), got {tuple(x.shape)}")
+    return (x.t().contiguous(), True) if x.dim() == 2 else (x[None], False)
+
+
+def _y_out(y, batched: bool):
+    """(B, R) -> (R, B) or (R,)."""
+    return y.t().contiguous() if batched else y[0]
+
+
+def _one(dev):
+    return torch.zeros(1, dtype=torch.int32, device=dev)
+
+
+def _ranges(sorted_ids, n: int):
+    """(n+1,) int32 starts of ids 0..n in a sorted id tensor."""
+    return torch.searchsorted(
+        sorted_ids.long(), torch.arange(n + 1, device=sorted_ids.device)).int()
+
+
+def _piece_table(dev, chunk, lo, hi, row, split, L: int, num_rows: int):
+    """The kernels' piece table: (P, 5) [chunk, lo, hi, row, split] sorted
+    by row, then by position in the nnz stream (so split-ordered within a
+    row), and its (R+1,) row ranges."""
+    pcs = torch.stack([_idx(dev, a) for a in (chunk, lo, hi, row, split)], 1)
+    key = (pcs[:, 3].long() << 31) + pcs[:, 0].long() * L + pcs[:, 1].long()
+    pcs = pcs[torch.argsort(key, stable=True)].contiguous()
+    return pcs, _ranges(pcs[:, 3], num_rows)
+
+
+def _format_arrays(fmt, cls, fields, num_rows, what: str):
+    if isinstance(fmt, cls):
+        return ([getattr(fmt, f) for f in fields],
+                fmt.shape[0] if num_rows is None else num_rows)
+    if num_rows is None:
+        raise ValueError(f"num_rows is required with raw {what} arrays")
+    return list(fmt), num_rows
+
+
+def _ell(dev, data, cols, ovf, x):
+    """One matrix through the ELL/HYB kernel (S = 1); ``ovf`` is
+    (rows, cols, vals), reordered by row for the kernel's ranges."""
+    data, cols = _on(dev, data), _idx(dev, cols)
+    xb, batched = _x_in(dev, x)
+    M = data.shape[0]
+    orow, ocol, oval = _idx(dev, ovf[0]), _idx(dev, ovf[1]), _on(dev, ovf[2])
+    order = torch.argsort(orow, stable=True)
+    orow, ocol, oval = orow[order], ocol[order], oval[order]
+    y = hyb_stacked(data[None], cols[None], orow[None], ocol[None],
+                    oval[None], _ranges(orow, M)[None], xb[None], _one(dev))
+    return _y_out(y[0], batched)
+
+
+def ell_spmv(data, cols, x, *, device="cuda"):
+    """Padded-ELL SpMV: ``y[i] = sum_w data[i, w] * x[cols[i, w]]`` over
+    the (M, W) slab; returns (M,) or (M, B)."""
+    empty = np.zeros(0, np.int32)
+    return _ell(resolve_device(device), data, cols,
+                (empty, empty, empty.astype(np.float32)), x)
+
+
+def hyb_spmv(ell_data, ell_cols, ovf_rows, ovf_cols, ovf_vals, x, *,
+             device="cuda"):
+    """HYB: the padded-ELL product plus the COO overflow tail, added per
+    row in stored order inside the same kernel."""
+    return _ell(resolve_device(device), ell_data, ell_cols,
+                (ovf_rows, ovf_cols, ovf_vals), x)
+
+
+def seg_spmv(seg: "SegMatrix | tuple", x, *, num_rows: int | None = None,
+             device="cuda"):
+    """Nonzero-balanced segmented SpMV: per-chunk prefix sums
+    (``seg_psum``), then the carry fix-up.  ``seg`` is a
+    :class:`SegMatrix` or the tuple ``(vals, cols, rows, piece_chunk,
+    piece_lo, piece_hi, piece_row)`` (then ``num_rows`` is required)."""
+    dev = resolve_device(device)
+    arrays, num_rows = _format_arrays(
+        seg, SegMatrix, ("vals", "cols", "rows", "piece_chunk", "piece_lo",
+                         "piece_hi", "piece_row"), num_rows, "seg")
+    vals, cols = _on(dev, arrays[0]), _idx(dev, arrays[1])
+    p_chunk, p_lo, p_hi, p_row = arrays[3:]
+    pcs, ptr = _piece_table(dev, p_chunk, p_lo, p_hi, p_row,
+                            torch.zeros(len(p_row), dtype=torch.int32,
+                                        device=dev), vals.shape[1], num_rows)
+    xb, batched = _x_in(dev, x)
+    y = seg_stacked(vals[None], cols[None], pcs[None], ptr[None], xb[None],
+                    _one(dev))
+    return _y_out(y[0], batched)
+
+
+def split_spmv(spl: "SplitMatrix | tuple", x, *,
+               num_rows: int | None = None, device="cuda"):
+    """Split-nnz two-stage SpMV: ``split_psum`` over the (NS, Cs, L) slab,
+    the per-split carry fix-up, then ``split_combine``.  ``spl`` is a
+    :class:`SplitMatrix` or the tuple ``(vals, cols, rows, piece_split,
+    piece_chunk, piece_lo, piece_hi, piece_row)`` (then ``num_rows`` is
+    required)."""
+    dev = resolve_device(device)
+    arrays, num_rows = _format_arrays(
+        spl, SplitMatrix, ("vals", "cols", "rows", "piece_split",
+                           "piece_chunk", "piece_lo", "piece_hi",
+                           "piece_row"), num_rows, "split")
+    vals, cols = _on(dev, arrays[0]), _idx(dev, arrays[1])
+    NS, Cs, L = vals.shape
+    p_split, p_chunk, p_lo, p_hi, p_row = (_idx(dev, a) for a in arrays[3:])
+    pcs, ptr = _piece_table(dev, p_split * Cs + p_chunk, p_lo, p_hi, p_row,
+                            p_split, L, num_rows)
+    xb, batched = _x_in(dev, x)
+    psum = split_psum(vals, cols, xb)                     # (B, NS, Cs, L)
+    y = _split_fixup_combine(psum.view(1, -1, NS * Cs, L), pcs[None],
+                             ptr[None], _one(dev), NS, None)
+    return _y_out(y[0], batched)
+
+
+def split_flat_spmv(vals, cols, rows, pieces, x, *, num_rows: int,
+                    num_splits: int, device="cuda"):
+    """Split SpMV over the flattened (NS*Cs, L) slab and its (P, 5) piece
+    table ``[flat_chunk, lo, hi, row, split]`` (padded rows
+    ``[0, 1, 0, 0, 0]`` add nothing): ``seg_psum``, the per-split fix-up
+    and the split combine.  ``rows`` is the oracle's operand only."""
+    dev = resolve_device(device)
+    vals, cols = _on(dev, vals), _idx(dev, cols)
+    pieces = _idx(dev, pieces).reshape(-1, 5)
+    pcs, ptr = _piece_table(dev, *pieces.unbind(1), vals.shape[1], num_rows)
+    xb, batched = _x_in(dev, x)
+    y = split_stacked(vals[None], cols[None], pcs[None], ptr[None], xb[None],
+                      _one(dev), num_splits=num_splits)
+    return _y_out(y[0], batched)
+
+
+def tile_spmv(tile: TileMatrix, x, *, num_rows: int | None = None,
+              device="cuda"):
+    """Bitmask-tiled SpMV: the walk over each block row's occupied tiles
+    (``tile_walk_spmv``), x addressed by block column."""
+    dev = resolve_device(device)
+    num_rows = tile.shape[0] if num_rows is None else num_rows
+    xb, batched = _x_in(dev, x)
+    y = tile_walk_spmv(_on(dev, tile.data), _idx(dev, tile.tile_cols),
+                       _idx(dev, tile.tile_ptr), xb)
+    return _y_out(y[:, :num_rows], batched)
+
+
+def tile_flat_spmv(data, xcols, trows, x, *, num_rows: int, device="cuda"):
+    """Tile SpMV over the flat pre-gathered operands: per-lane x positions
+    ``xcols`` (T, bn) and block rows ``trows`` (T,); tiles past the last
+    block row drop.  Lane gather, products and block-row sums run in one
+    kernel (``tile_contrib``), which walks tiles sorted by block row."""
+    dev = resolve_device(device)
+    data, xcols, trows = _on(dev, data), _idx(dev, xcols), _idx(dev, trows)
+    bm = data.shape[1]
+    Rb = max(-(-num_rows // bm), 1)
+    if len(trows) > 1 and bool((trows[1:] < trows[:-1]).any()):
+        order = torch.argsort(trows, stable=True)
+        data, xcols, trows = data[order], xcols[order], trows[order]
+    xb, batched = _x_in(dev, x)
+    y = tile_stacked(data[None], xcols[None], trows[None],
+                     _ranges(trows, Rb)[None], xb[None], _one(dev))
+    return _y_out(y[0, :, :num_rows], batched)
+
+
+def _bell_walk(blocks, bcols, x, dev):
+    """Block-ELL as the tile walk: slot (mb, k) is tile mb*K + k."""
+    blocks = _on(dev, blocks)
+    Mb, K, bm, bn = blocks.shape
+    ptr = torch.arange(Mb + 1, dtype=torch.int32, device=dev) * K
+    xb, batched = _x_in(dev, x)
+    y = tile_walk_spmv(blocks.reshape(Mb * K, bm, bn),
+                       _idx(dev, bcols).reshape(-1), ptr, xb)
+    return _y_out(y, batched)
+
+
+def bell_spmv(blocks, bcols, x, *, device="cuda"):
+    """Deprecated Block-ELL SpMV, run as the tile walk; use
+    :func:`tile_spmv` on a :func:`tile_from_csr` matrix instead."""
+    _warn_deprecated("bell_spmv", "repro_torch.kernels.ops.tile_spmv")
+    return _bell_walk(blocks, bcols, x, resolve_device(device))
+
+
+def bell_spmm(blocks, bcols, X, *, device="cuda"):
+    """Deprecated Block-ELL SpMM (X is (N, B)), run as the tile walk; use
+    :func:`tile_spmv` with an (N, B) block instead."""
+    _warn_deprecated("bell_spmm", "repro_torch.kernels.ops.tile_spmv")
+    return _bell_walk(blocks, bcols, X, resolve_device(device))
+
+
+# --------------------------------------------------------------------------
+# the executor's stacked ops (one kernel family over the listed shards)
 # --------------------------------------------------------------------------
 
 def _out(out, like, S: int, B: int, R: int):
@@ -146,14 +396,14 @@ def _out(out, like, S: int, B: int, R: int):
     return torch.empty((S, B, R), dtype=torch.float32, device=like.device)
 
 
-def hyb_spmv(data, cols, ovf_rows, ovf_cols, ovf_vals, ovf_ptr, x, sids, *,
-             out=None):
+def hyb_stacked(data, cols, ovf_rows, ovf_cols, ovf_vals, ovf_ptr, x, sids,
+                *, out=None):
     """ELL slab + the COO overflow tail, fused in one kernel."""
     return _ell_kernel(data, cols, ovf_rows, ovf_cols, ovf_vals, ovf_ptr, x,
                        sids, out=out)
 
 
-def ell_spmv(data, cols, x, sids, *, out=None):
+def ell_stacked(data, cols, x, sids, *, out=None):
     """Padded-ELL SpMV (no overflow tail)."""
     S, R, _ = data.shape
     z = torch.zeros((S, 1), dtype=torch.int32, device=data.device)
@@ -167,35 +417,38 @@ def _seg_fixup(psum, pieces, piece_ptr, sids, out):
                      out=out)
 
 
-def _split_flat_fixup(psum, pieces, piece_ptr, sids, num_splits: int):
-    """Split carry fix-up into per-split partials (n, B, NS, R)."""
+def _split_fixup_combine(psum, pieces, piece_ptr, sids, num_splits: int,
+                         out):
+    """Split carry fix-up into per-split partials (n, B, NS, R), then the
+    split combine into ``out`` (S, B, R)."""
     n, B = psum.shape[:2]
     R = piece_ptr.shape[1] - 1
     part = torch.empty((n, B, num_splits, R), dtype=torch.float32,
                        device=psum.device)
     pos = torch.arange(n, dtype=torch.int32, device=psum.device)
-    return seg_fixup(psum, pieces, piece_ptr, sids, pos,
-                     num_splits=num_splits, out=part)
+    seg_fixup(psum, pieces, piece_ptr, sids, pos, num_splits=num_splits,
+              out=part)
+    out = _out(out, psum, piece_ptr.shape[0], B, R)
+    return split_combine(part, sids, out=out)
 
 
-def seg_spmv(vals, cols, pieces, piece_ptr, x, sids, *, out=None):
+def seg_stacked(vals, cols, pieces, piece_ptr, x, sids, *, out=None):
     """Segmented SpMV: per-chunk prefix sums, then the carry fix-up."""
     out = _out(out, vals, vals.shape[0], x.shape[1], piece_ptr.shape[1] - 1)
     psum = seg_psum(vals, cols, x, sids)
     return _seg_fixup(psum, pieces, piece_ptr, sids, out)
 
 
-def split_flat_spmv(vals, cols, pieces, piece_ptr, x, sids, *,
-                    num_splits: int, out=None):
+def split_stacked(vals, cols, pieces, piece_ptr, x, sids, *,
+                  num_splits: int, out=None):
     """Split SpMV over the flattened (NS*Cs, L) slab: seg_psum, the
     per-split fix-up, then the split combine."""
-    out = _out(out, vals, vals.shape[0], x.shape[1], piece_ptr.shape[1] - 1)
     psum = seg_psum(vals, cols, x, sids)
-    part = _split_flat_fixup(psum, pieces, piece_ptr, sids, num_splits)
-    return split_combine(part, sids, out=out)
+    return _split_fixup_combine(psum, pieces, piece_ptr, sids, num_splits,
+                                out)
 
 
-def tile_flat_spmv(data, xcol, brow, tile_ptr, x, sids, *, out=None):
+def tile_stacked(data, xcol, brow, tile_ptr, x, sids, *, out=None):
     """Tile SpMV: lane gather, per-tile products and block-row sums in one
     kernel."""
     return tile_contrib(data, xcol, brow, tile_ptr, x, sids, out=out)

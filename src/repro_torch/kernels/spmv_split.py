@@ -1,9 +1,15 @@
-"""Split-nnz SpMV stage 2: the split-axis combine (``csrc/spmv_split.cu``).
+"""Split-nnz SpMV: stage 1's prefix sums over the split slab and stage
+2's split-axis combine (``csrc/spmv_split.cu``).
 
-Counterpart of ``repro.kernels.spmv_split.split_combine``.  Stage 1 is
-:func:`~repro_torch.kernels.spmv_seg.seg_psum` followed by
+Counterpart of ``repro.kernels.spmv_split.split_psum`` and
+``split_combine``.  Between them runs the carry fix-up,
 :func:`~repro_torch.kernels.spmv_seg.seg_fixup` with ``num_splits=NS``.
+The executor's split shards take stage 1 from
+:func:`~repro_torch.kernels.spmv_seg.seg_psum` on their flattened slab,
+as the reference's device path does; the host op
+``ops.split_spmv`` takes it from :func:`split_psum`.
 
+    psum[b, s, c, l] = sum_{j <= l} vals[s, c, j] * x[b, cols[s, c, j]]
     y[sids[k], b, r] = sum_t part[k, b, t, r]     (t = 0 .. NS-1, in order)
 """
 from __future__ import annotations
@@ -12,7 +18,41 @@ import torch
 
 from . import _lib
 
-__all__ = ["split_combine", "split_combine_plain"]
+__all__ = ["split_psum", "split_psum_plain", "split_combine",
+           "split_combine_plain"]
+
+
+def split_psum_plain(vals, cols, x, out):
+    """Gather, multiply and ``cumsum`` within each chunk."""
+    out[:] = torch.cumsum(vals[None] * x[:, cols.long()], dim=-1)
+    return out
+
+
+def split_psum(vals, cols, x, *, out=None):
+    """Per-chunk inclusive prefix sums over the (NS, Cs, L) slab for the
+    batch-major vectors ``x`` (B, n); returns (B, NS, Cs, L).  A CUDA
+    tensor launches the kernel; a CPU tensor runs
+    :func:`split_psum_plain`."""
+    NS, Cs, L = vals.shape
+    B, n = x.shape
+    if out is None:
+        out = torch.empty((B, NS, Cs, L), dtype=torch.float32,
+                          device=vals.device)
+    if vals.device.type == "cpu":
+        return split_psum_plain(vals, cols, x, out)
+    f32, i32 = torch.float32, torch.int32
+    _lib.check(vals.device, vals=(vals, f32, 3), cols=(cols, i32, 3),
+               x=(x, f32, 2), out=(out, f32, 4))
+    if cols.shape != vals.shape or out.shape != (B, NS, Cs, L):
+        raise ValueError("split_psum: operand shapes disagree")
+    if L % 32 or not 0 < L <= 1024:
+        raise ValueError(f"split_psum: chunk {L} must be a multiple of 32 "
+                         f"and at most 1024 (one thread per element)")
+    if NS * Cs == 0 or B == 0:
+        return out
+    _lib.call("split_psum", "rt_split_psum", vals.data_ptr(), cols.data_ptr(),
+              x.data_ptr(), NS * Cs, L, n, B, out.data_ptr())
+    return out
 
 
 def split_combine_plain(part, sids, out):

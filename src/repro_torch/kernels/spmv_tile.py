@@ -1,14 +1,27 @@
-"""Bitmask-tiled SpMV over the flat device operands (``csrc/spmv_tile.cu``).
+"""Bitmask-tiled SpMV: the walk over each block row's occupied tiles
+(``csrc/spmv_tile.cu``).
 
-Counterpart of ``repro.kernels.spmv_tile.tile_contrib`` together with the
-jnp lane gather and block-row scatter around it on the device path:
+* :func:`tile_contrib` — counterpart of
+  ``repro.kernels.spmv_tile.tile_contrib`` together with the jnp lane
+  gather and block-row scatter around it on the device path, over the
+  executor's flat S-stacked operands::
 
-    y[s, b, mb*bm + i] = sum over block row mb's tiles t of
-                         sum_j data[s, t, i, j] * x[s, b, xcol[s, t, j]]
+      y[s, b, mb*bm + i] = sum over block row mb's tiles t of
+                           sum_j data[s, t, i, j] * x[s, b, xcol[s, t, j]]
 
-Tiles are sorted by block row (``brow``); padding tiles carry
-``brow = Rb`` and drop.  ``tile_ptr`` (S, Rb+1) holds each block row's
-run of tiles.
+  Tiles are sorted by block row (``brow``); padding tiles carry
+  ``brow = Rb`` and drop.  ``tile_ptr`` (S, Rb+1) holds each block row's
+  run of tiles.
+* :func:`tile_walk_spmv` — counterpart of
+  ``repro.kernels.spmv_tile.tile_walk_spmv`` on one
+  :class:`~repro_torch.core.sparse_matrix.TileMatrix`, x addressed by
+  block column::
+
+      y[b, mb*bm + i] = sum over t in tile_ptr[mb] .. tile_ptr[mb+1] of
+                        sum_j data[t, i, j] * x[b, tile_cols[t]*bn + j]
+
+  with x taken as 0 past its end.  The TPU kernel's K-padded walk tables
+  and masked slots have no counterpart: the kernel walks ``tile_ptr``.
 """
 from __future__ import annotations
 
@@ -16,7 +29,8 @@ import torch
 
 from . import _lib
 
-__all__ = ["tile_contrib", "tile_contrib_plain"]
+__all__ = ["tile_contrib", "tile_contrib_plain", "tile_walk_spmv",
+           "tile_walk_spmv_plain"]
 
 
 def tile_contrib_plain(data, xcol, brow, x, sids, out):
@@ -64,4 +78,51 @@ def tile_contrib(data, xcol, brow, tile_ptr, x, sids, *, out=None):
               xcol.data_ptr(), tile_ptr.data_ptr(), x.data_ptr(),
               _lib.x_stride(x), sids.data_ptr(), sids.numel(), Tp, Rb, bm, bn,
               Lx, B, out.data_ptr())
+    return out
+
+
+def tile_walk_spmv_plain(data, tile_cols, tile_ptr, x, out):
+    """Gather each tile's x block (x zero-padded to whole blocks), form the
+    (bm, bn) @ (bn,) products, and sum them per block row in tile order."""
+    T, bm, bn = data.shape
+    B, n = x.shape
+    Mb = tile_ptr.numel() - 1
+    Nb = max(-(-n // bn), 1)
+    xb = torch.nn.functional.pad(x, (0, Nb * bn - n)).reshape(B, Nb, bn)
+    xg = xb[:, tile_cols.long()]                                # (B, T, bn)
+    contrib = (data[None] * xg[:, :, None, :]).sum(-1)          # (B, T, bm)
+    brow = torch.repeat_interleave(
+        torch.arange(Mb, device=data.device), torch.diff(tile_ptr.long()))
+    acc = torch.zeros((B, Mb, bm), dtype=data.dtype, device=data.device)
+    acc.index_add_(1, brow, contrib)
+    out[:] = acc.reshape(B, Mb * bm)
+    return out
+
+
+def tile_walk_spmv(data, tile_cols, tile_ptr, x, *, out=None):
+    """The tile walk for the batch-major vectors ``x`` (B, n); returns
+    ``out`` (B, Mb*bm).  A CUDA tensor launches the kernel; a CPU tensor
+    runs :func:`tile_walk_spmv_plain`."""
+    T, bm, bn = data.shape
+    B, n = x.shape
+    Mb = tile_ptr.numel() - 1
+    if out is None:
+        out = torch.empty((B, Mb * bm), dtype=torch.float32,
+                          device=data.device)
+    if data.device.type == "cpu":
+        return tile_walk_spmv_plain(data, tile_cols, tile_ptr, x, out)
+    f32, i32 = torch.float32, torch.int32
+    _lib.check(data.device, data=(data, f32, 3),
+               tile_cols=(tile_cols, i32, 1), tile_ptr=(tile_ptr, i32, 1),
+               x=(x, f32, 2), out=(out, f32, 2))
+    if bn != 128 or bm % 8 or bm == 0:
+        raise ValueError(f"tile_walk_spmv: the kernel takes (8k, 128) "
+                         f"tiles, got {(bm, bn)}")
+    if tile_cols.numel() != T or out.shape != (B, Mb * bm):
+        raise ValueError("tile_walk_spmv: operand shapes disagree")
+    if Mb == 0 or B == 0:
+        return out
+    _lib.call("tile_walk_spmv", "rt_tile_walk_spmv", data.data_ptr(),
+              tile_cols.data_ptr(), tile_ptr.data_ptr(), x.data_ptr(), Mb, bm,
+              bn, n, B, out.data_ptr())
     return out

@@ -123,6 +123,24 @@ def test_csr_from_coo_and_empty_formats_bitwise():
     for build in ("seg_from_csr", "hyb_from_csr", "tile_from_csr"):
         assert_same(getattr(r_ops, build)(E), getattr(t_ops, build)(F))
     assert_same(r_ops.split_from_csr(E, 4), t_ops.split_from_csr(F, 4))
+    assert_same(r_sm.csr_to_bcsr(E), t_sm.csr_to_bcsr(F))
+    assert t_ops.tile_from_csr(F).max_tiles_per_block_row == 0
+
+
+@pytest.mark.parametrize("block", [None, (8, 128), (16, 128)])
+def test_bcsr_and_tile_row_counts_bitwise(matrix, block):
+    """Block CSR (default (128, 128) blocks) and the widest block row of
+    the tile layout, as the reference builds them."""
+    A, B = matrix
+    args = () if block is None else (block,)
+    ra, ta = r_sm.csr_to_bcsr(A, *args), t_sm.csr_to_bcsr(B, *args)
+    assert_same(ra, ta)
+    assert (ra.nblocks, ra.density_in_blocks) == \
+        (ta.nblocks, ta.density_in_blocks)
+    bm, bn = block or (8, 128)
+    rt = r_ops.tile_from_csr(A, bm=bm, bn=bn)
+    tt = t_ops.tile_from_csr(B, bm=bm, bn=bn)
+    assert rt.max_tiles_per_block_row == tt.max_tiles_per_block_row > 0
 
 
 @pytest.mark.parametrize("S", [1, 2, 4])

@@ -82,10 +82,10 @@ def hyb_case():
 def test_ell_plain_matches_pallas_and_oracle(hyb_case):
     ops, run, xb, xg = hyb_case
     T, sids = run.operands, run.families["hyb"]
-    out = t_ops.ell_spmv(T["rem_ell_data"], T["rem_ell_cols"], xg, sids)
+    out = t_ops.ell_stacked(T["rem_ell_data"], T["rem_ell_cols"], xg, sids)
     absd = torch.abs
-    scale = t_ops.ell_spmv(absd(T["rem_ell_data"]), T["rem_ell_cols"],
-                           absd(xg), sids)
+    scale = t_ops.ell_stacked(absd(T["rem_ell_data"]), T["rem_ell_cols"],
+                              absd(xg), sids)
     for p in sids.tolist():
         d, c = ops["rem_ell_data"][p], ops["rem_ell_cols"][p]
         assert (d == 0).any()                     # padded slots present
@@ -102,7 +102,7 @@ def test_hyb_overflow_matches_reference(hyb_case):
     for pre, xbuf in (("loc_", xb), ("rem_", xg)):
         args = [T[pre + k] for k in ("ell_data", "ell_cols", "ovf_rows",
                                      "ovf_cols", "ovf_vals", "ovf_ptr")]
-        out = t_ops.hyb_spmv(*args, xbuf, sids)
+        out = t_ops.hyb_stacked(*args, xbuf, sids)
         for p in sids.tolist():
             xv = jnp.asarray(xbuf[p, 0].numpy())
             d, c, orow, ocol, oval = (ops[pre + k][p] for k in (
@@ -112,7 +112,7 @@ def test_hyb_overflow_matches_reference(hyb_case):
             want = r_ops._overflow_add(y, orow, ocol, oval, xv,
                                        num_rows=ops["R"])
             _close(out[p, 0], want)
-        _bitwise_columns(lambda x: t_ops.hyb_spmv(*args, x, sids), xbuf,
+        _bitwise_columns(lambda x: t_ops.hyb_stacked(*args, x, sids), xbuf,
                          sids)
 
 
@@ -163,7 +163,7 @@ def test_seg_family_matches_reference(monster_case):
     T, sids = run.operands, run.families["seg"]
     args = [T["rem_" + k] for k in ("seg_vals", "seg_cols", "seg_pieces",
                                     "piece_ptr")]
-    out = t_ops.seg_spmv(*args, xg, sids)
+    out = t_ops.seg_stacked(*args, xg, sids)
     for p in sids.tolist():
         pc = ops["rem_seg_pieces"][p]
         want = r_ops.seg_spmv(
@@ -172,7 +172,7 @@ def test_seg_family_matches_reference(monster_case):
             jnp.asarray(xg[p, 0].numpy()), num_rows=ops["R"],
             use_kernel=True, interpret=True)
         _close(out[p, 0], want)
-    _bitwise_columns(lambda x: t_ops.seg_spmv(*args, x, sids), xg, sids)
+    _bitwise_columns(lambda x: t_ops.seg_stacked(*args, x, sids), xg, sids)
 
 
 def test_split_family_matches_reference(monster_case):
@@ -184,7 +184,7 @@ def test_split_family_matches_reference(monster_case):
     assert (pcs[:, 1] > pcs[:, 2]).any()          # padded piece rows
     args = [T["rem_" + k] for k in ("seg_vals", "seg_cols", "seg_pieces",
                                     "piece_ptr")]
-    out = t_ops.split_flat_spmv(*args, xg, sids, num_splits=NS)
+    out = t_ops.split_stacked(*args, xg, sids, num_splits=NS)
     for p in sids.tolist():
         want = r_ops.split_flat_spmv(
             ops["rem_seg_vals"][p], ops["rem_seg_cols"][p],
@@ -192,7 +192,7 @@ def test_split_family_matches_reference(monster_case):
             jnp.asarray(xg[p, 0].numpy()), num_rows=ops["R"], num_splits=NS,
             use_kernel=True, interpret=True)
         _close(out[p, 0], want)
-    _bitwise_columns(lambda x: t_ops.split_flat_spmv(
+    _bitwise_columns(lambda x: t_ops.split_stacked(
         *args, x, sids, num_splits=NS), xg, sids)
 
 
@@ -222,9 +222,9 @@ def test_tile_family_matches_pallas_and_oracle(tile_case):
     for pre, xbuf in (("loc_", xb), ("rem_", xg)):
         args = [T[pre + k] for k in ("tile_data", "tile_xcol", "tile_brow",
                                      "tile_ptr")]
-        out = t_ops.tile_flat_spmv(*args, xbuf, sids)
-        scale = t_ops.tile_flat_spmv(torch.abs(args[0]), *args[1:],
-                                     torch.abs(xbuf), sids)
+        out = t_ops.tile_stacked(*args, xbuf, sids)
+        scale = t_ops.tile_stacked(torch.abs(args[0]), *args[1:],
+                                   torch.abs(xbuf), sids)
         for p in sids.tolist():
             d, xc, br = (ops[pre + k][p] for k in ("tile_data", "tile_xcol",
                                                    "tile_brow"))
@@ -241,7 +241,7 @@ def test_tile_family_matches_pallas_and_oracle(tile_case):
             y = np.zeros((Rb, 8), np.float64)
             np.add.at(y, br[keep], contrib[keep])
             _close(out[p, 0], y.reshape(-1), scale[p, 0])
-        _bitwise_columns(lambda x: t_ops.tile_flat_spmv(*args, x, sids),
+        _bitwise_columns(lambda x: t_ops.tile_stacked(*args, x, sids),
                          xbuf, sids)
 
 
