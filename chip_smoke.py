@@ -140,10 +140,13 @@ def replays(torch, run, xs):
     and flops the launch must move and do on this run's operands.
 
     Bytes count what the launch reads and writes, once each: the stacked
-    ELL and seg slabs of its shards in full (the kernels walk every slot),
-    the overflow entries, pieces and tiles only up to each shard's real
-    count (past it the kernels read nothing), every gather (x, and the
-    fix-up's psum) at 4 bytes per distinct position, and the output."""
+    seg slabs of its shards in full (the kernels walk every slot), the ELL
+    slots only up to each row's ``ell_len`` (8 bytes a real slot, plus the
+    4-byte ``ell_len`` of every row; the earlier kernel walked, and this
+    counted, the whole padded slab), the overflow entries, pieces and
+    tiles only up to each shard's real count (past it the kernels read
+    nothing), every gather (x, and the fix-up's psum) at 4 bytes per
+    distinct position, and the output."""
     xb, xg = run.buffers(xs)
     out = []
     for pre, x in (("loc_", xb), ("rem_", xg)):
@@ -186,17 +189,24 @@ def family_replays(torch, run, pre, x, fam, sids):
         a = [T[pre + k] for k in ("ell_data", "ell_cols", "ovf_rows",
                                   "ovf_cols", "ovf_vals", "ovf_ptr")]
         data, cols, _, ovf_cols, _, ovf_ptr = a
+        ell_len = T[pre + "ell_len"]
         absa = [torch.abs(a[0])] + a[1:4] + [torch.abs(a[4]), a[5]]
         n_ovf = real(ovf_ptr)
-        gathered = [torch.cat([cols[s].reshape(-1), ovf_cols[s, :m]])
+        slots = torch.arange(data.shape[2], device=x.device)
+        gathered = [torch.cat([cols[s][slots < ell_len[s][:, None]],
+                               ovf_cols[s, :m]])
                     for s, m in zip(shards, n_ovf)]
+        n_slots = int(ell_len[sids.long()].sum())
         rec("ell_spmv",
-            lambda: spmv_ell.ell_spmv(*a, x, sids, out=y_out()),
-            lambda: spmv_ell.ell_spmv_plain(*a, x, sids, y_out()),
-            lambda: spmv_ell.ell_spmv_plain(*absa, ax, sids, y_out()),
-            frac * nbytes(data, cols) + 8 * sum(n_ovf)
+            lambda: spmv_ell.ell_spmv(*a, x, sids, ell_len=ell_len,
+                                      out=y_out()),
+            lambda: spmv_ell.ell_spmv_plain(*a, x, sids, y_out(),
+                                            ell_len=ell_len),
+            lambda: spmv_ell.ell_spmv_plain(*absa, ax, sids, y_out(),
+                                            ell_len=ell_len),
+            8 * n_slots + 4 * n * R + 8 * sum(n_ovf)
             + 4 * n * ovf_ptr.shape[1] + x_bytes(gathered) + ybytes + 4 * n,
-            2 * B * (n * data[0].numel() + sum(n_ovf)))
+            2 * B * (n_slots + sum(n_ovf)))
         return recs
     if fam == "tile":
         a = [T[pre + k] for k in ("tile_data", "tile_xcol", "tile_brow",
@@ -502,9 +512,24 @@ def recorded_launches(ops):
             setattr(ops, name, fn)
 
 
+def popcount(m) -> int:
+    """Set bits of a uint8 tensor."""
+    v = m - ((m >> 1) & 0x55)
+    v = (v & 0x33) + ((v >> 2) & 0x33)
+    return int(((v + (v >> 4)) & 0x0F).sum())
+
+
 def api_record(torch, label, wrapper, a, kw) -> dict:
     """One recorded launch of the per-format API as a replay record (the
-    fields of :func:`family_replays`' records), bytes counted as there."""
+    fields of :func:`family_replays`' records), bytes counted as there.
+
+    The tile walk with a mask counts what it now reads: the mask (16 bytes
+    a tile row), the occupied 32-byte sectors of data (a nonzero mask
+    byte each), each distinct x sector the occupied sectors meet (32 bytes
+    a column), ``tile_cols``, ``tile_ptr`` and y.  The earlier walk read,
+    and this counted, every whole tile and every x lane of its block
+    columns; the null-mask walk of the Block-ELL shims still does, and is
+    counted so."""
     from repro_torch.kernels import spmv_ell, spmv_seg, spmv_split, spmv_tile
 
     dev = a[0].device
@@ -515,22 +540,28 @@ def api_record(torch, label, wrapper, a, kw) -> dict:
 
     if wrapper == "_ell_kernel":
         data, cols, orow, ocol, oval, optr, x, sids = a
-        S, R, _ = data.shape
+        ell_len = kw.get("ell_len")
+        S, R, W = data.shape
         B = x.shape[1]
         m = int(optr[0, R])
         out = fresh((S, B, R))
-        gathered = torch.cat([cols.reshape(-1), ocol[0, :m]])
+        if ell_len is None:                 # every slot of the slab is real
+            real = torch.ones_like(cols, dtype=torch.bool)
+        else:
+            real = torch.arange(W, device=dev) < ell_len[..., None]
+        n_slots = int(real.sum())
+        gathered = torch.cat([cols[real], ocol[0, :m]])
         rec.update(
             name="ell_spmv",
-            kernel=lambda: spmv_ell.ell_spmv(*a, out=out()),
-            plain=lambda: spmv_ell.ell_spmv_plain(*a, out()),
+            kernel=lambda: spmv_ell.ell_spmv(*a, ell_len=ell_len, out=out()),
+            plain=lambda: spmv_ell.ell_spmv_plain(*a, out(), ell_len=ell_len),
             scale=lambda: spmv_ell.ell_spmv_plain(
                 data.abs(), cols, orow, ocol, oval.abs(), optr, x.abs(), sids,
-                out()),
-            bytes=nbytes(data, cols) + 8 * m + 4 * (R + 1)
-            + 4 * B * distinct(torch, [gathered], shared=True)
+                out(), ell_len=ell_len),
+            bytes=8 * n_slots + (0 if ell_len is None else 4 * R) + 8 * m
+            + 4 * (R + 1) + 4 * B * distinct(torch, [gathered], shared=True)
             + 4 * B * R + 4,
-            ops=2 * B * (data.numel() + m))
+            ops=2 * B * (n_slots + m))
     elif wrapper in ("seg_psum", "split_psum"):
         vals, cols, x = a[:3]
         B = x.shape[-2]
@@ -583,19 +614,31 @@ def api_record(torch, label, wrapper, a, kw) -> dict:
             library=lambda: part.sum(dim=2))
     elif wrapper == "tile_walk_spmv":
         data, tcols, tptr, x = a
+        mask = kw.get("mask")
         T, bm, bn = data.shape
         B, n = x.shape
         out = fresh((B, (tptr.numel() - 1) * bm))
-        lanes = int((n - tcols.unique().long() * bn).clamp(max=bn).sum())
+        if mask is None:
+            lanes = int((n - tcols.unique().long() * bn).clamp(max=bn).sum())
+            moved = nbytes(data) + 4 * B * lanes
+            flops = 2 * B * data.numel()
+        else:
+            occ = mask != 0                   # (T, bm, bn/8) occupied sectors
+            xsec = (tcols.long()[:, None] * (bn // 8)
+                    + torch.arange(bn // 8, device=dev))[occ.any(1)]
+            moved = (nbytes(mask) + 32 * int(occ.sum())
+                     + 32 * B * int(xsec.unique().numel()))
+            flops = 2 * B * popcount(mask)
         rec.update(
             name="tile_walk_spmv",
-            kernel=lambda: spmv_tile.tile_walk_spmv(*a),
-            plain=lambda: spmv_tile.tile_walk_spmv_plain(*a, out()),
+            kernel=lambda: spmv_tile.tile_walk_spmv(*a, mask=mask),
+            plain=lambda: spmv_tile.tile_walk_spmv_plain(*a, out(),
+                                                         mask=mask),
             scale=lambda: spmv_tile.tile_walk_spmv_plain(
-                data.abs(), tcols, tptr, x.abs(), out()),
-            bytes=nbytes(data, tcols, tptr) + 4 * B * lanes
+                data.abs(), tcols, tptr, x.abs(), out(), mask=mask),
+            bytes=moved + nbytes(tcols, tptr)
             + 4 * B * (tptr.numel() - 1) * bm,
-            ops=2 * B * data.numel())
+            ops=flops)
     else:
         raise CheckFailed(f"{label}: no replay for {wrapper}")
     rec.setdefault("plain_timed", rec["plain"])
@@ -625,8 +668,9 @@ def api_cases(torch, matrices, device):
             a, x, num_rows=tail.nrows, device=device)
     band = matrices["blocked_band"]
     t = ops.tile_from_csr(band)
-    data, tcols, tptr = card(t.data, t.tile_cols, t.tile_ptr)
-    t = dataclasses.replace(t, data=data, tile_cols=tcols, tile_ptr=tptr)
+    data, tcols, tptr, tmask = card(t.data, t.tile_cols, t.tile_ptr, t.mask)
+    t = dataclasses.replace(t, data=data, tile_cols=tcols, tile_ptr=tptr,
+                            mask=tmask)
     yield "api/tile", band, lambda x: ops.tile_spmv(t, x, device=device)
     cop = matrices["cop20k_A"]
     seg = ops.seg_from_csr(cop)

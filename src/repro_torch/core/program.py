@@ -34,7 +34,7 @@ from .partition import Partition, make_partition
 from .plan import split_meta
 from .reorder import reordering_permutation
 from .sparse_matrix import CSRMatrix, ELL_LANE, ELL_SUBLANE, EllMatrix, \
-    SegMatrix, SplitMatrix, TileMatrix, csr_to_ell
+    SegMatrix, SplitMatrix, TileMatrix, csr_row_nnz, csr_to_ell
 from .spmv import PLAN_KERNELS, SpmvPlan
 from ..kernels import ops as kops
 from ..kernels.ops import resolve_device
@@ -410,7 +410,7 @@ def _row_ranges(sorted_ids: np.ndarray, n: int) -> np.ndarray:
                            side="left").astype(np.int32)
 
 
-def _stack_stages(stages, R: int, remap) -> dict:
+def _stack_stages(stages, R: int, remap, row_nnz) -> dict:
     """Stack a per-shard stage list into one uniform-shape operand set.
 
     The arrays are the reference's (``ell_*``, ``ovf_*``, ``seg_*``,
@@ -420,7 +420,10 @@ def _stack_stages(stages, R: int, remap) -> dict:
     added for the kernels, each built with searchsorted over a shard's
     real, row-sorted entries: ``ovf_ptr`` (S, R+1) over the overflow rows,
     ``piece_ptr`` (S, R+1) over the piece rows and ``tile_ptr`` (S, Rb+1)
-    over the tiles' block rows.
+    over the tiles' block rows.  A fourth, ``ell_len`` (S, R), counts each
+    row's real ELL slots: ``min(row nnz, W)`` of the stage's own ELL width
+    from ``row_nnz`` (each stage's row lengths, rows it does not own 0),
+    HYB rows spilling past W; 0 for padding rows and other families.
     """
     S = len(stages)
     ells = [st.ell for st in stages if st.ell is not None]
@@ -448,6 +451,7 @@ def _stack_stages(stages, R: int, remap) -> dict:
     ovf_cols = np.zeros((S, O), dtype=np.int32)
     ovf_vals = np.zeros((S, O), dtype=np.float32)
     ovf_ptr = np.zeros((S, R + 1), dtype=np.int32)
+    ell_len = np.zeros((S, R), dtype=np.int32)
     seg_vals = np.zeros((S, C, L), dtype=np.float32)
     seg_cols = np.zeros((S, C, L), dtype=np.int32)
     seg_rows = np.zeros((S, C, L), dtype=np.int32)
@@ -472,6 +476,7 @@ def _stack_stages(stages, R: int, remap) -> dict:
             r, w = e.data.shape
             ell_data[p, :r, :w] = e.data
             ell_cols[p, :r, :w] = remap(e.cols, e.data, p)
+            ell_len[p, :len(row_nnz[p])] = np.minimum(row_nnz[p], w)
             n = e.overflow_vals.size
             if n:
                 ovf_rows[p, :n] = e.overflow_rows
@@ -518,6 +523,7 @@ def _stack_stages(stages, R: int, remap) -> dict:
         tile_ptr[p] = _row_ranges(tile_brow[p], Rb)
     return dict(ell_data=ell_data, ell_cols=ell_cols, ovf_rows=ovf_rows,
                 ovf_cols=ovf_cols, ovf_vals=ovf_vals, ovf_ptr=ovf_ptr,
+                ell_len=ell_len,
                 seg_vals=seg_vals, seg_cols=seg_cols, seg_rows=seg_rows,
                 seg_pieces=seg_pieces, piece_ptr=piece_ptr,
                 tile_data=tile_data, tile_xcol=tile_xcol,
@@ -532,7 +538,9 @@ def _device_operands(program: SpmvProgram) -> dict:
     and a remote slice (``rem_*``, columns into the exchange buffer:
     ``[x_local ++ recv]`` when any shard reads a halo, the global x for a
     uniform all-gather).  ``row_remote`` picks, per row, which pass owns
-    the result.  Every array the reference builds is bitwise-equal to it.
+    the result.  Every array the reference builds is bitwise-equal to it;
+    the kernels' range and length tables (``ovf_ptr``, ``piece_ptr``,
+    ``tile_ptr``, ``ell_len``) are the port's own.
     """
     cached = getattr(program, "_device_ops_cache", None)
     if cached is not None:
@@ -561,7 +569,7 @@ def _device_operands(program: SpmvProgram) -> dict:
     R = int(max(_round_up(max(st.rows, 1), ELL_SUBLANE) for st in stages))
     flags = _row_remote_flags(program)
     row_remote = np.zeros((S, R), dtype=bool)
-    loc_stages, rem_stages = [], []
+    loc_stages, rem_stages, loc_nnz, rem_nnz = [], [], [], []
     kid = np.zeros(S, dtype=np.int32)
     for p, st in enumerate(stages):
         kid[p] = PROGRAM_KERNELS.index(st.kernel)
@@ -570,8 +578,11 @@ def _device_operands(program: SpmvProgram) -> dict:
         sub = program.partition.shard_csr(program.matrix, p)
         loc_stages.append(_masked_stage(sub, ~rr, st))
         rem_stages.append(_masked_stage(sub, rr, st))
-    loc = _stack_stages(loc_stages, R, remap_loc)
-    rem = _stack_stages(rem_stages, R, remap_rem)
+        per_row = csr_row_nnz(sub)
+        loc_nnz.append(np.where(rr, 0, per_row))
+        rem_nnz.append(np.where(rr, per_row, 0))
+    loc = _stack_stages(loc_stages, R, remap_loc, loc_nnz)
+    rem = _stack_stages(rem_stages, R, remap_rem, rem_nnz)
     cached = dict(kid=kid, send_idx=send_idx, row_remote=row_remote,
                   R=R, halo_H=H, NS_loc=loc.pop("NS"), NS_rem=rem.pop("NS"))
     cached.update({"loc_" + k: v for k, v in loc.items()})
@@ -645,7 +656,8 @@ def make_program_spmv_fn(program: SpmvProgram, *, device="cuda",
                 kops.hyb_stacked(T[pre + "ell_data"], T[pre + "ell_cols"],
                                  T[pre + "ovf_rows"], T[pre + "ovf_cols"],
                                  T[pre + "ovf_vals"], T[pre + "ovf_ptr"],
-                                 xbuf, sids, out=y)
+                                 xbuf, sids, ell_len=T[pre + "ell_len"],
+                                 out=y)
             elif name == "seg":
                 kops.seg_stacked(T[pre + "seg_vals"], T[pre + "seg_cols"],
                                  T[pre + "seg_pieces"], T[pre + "piece_ptr"],

@@ -8,9 +8,12 @@
 //   * everything batched is batch-major: the x buffer is (Sx, B, Lx), the
 //     output is (S, B, R).  Sx is S (one buffer per shard, x_stride =
 //     B * Lx) or 1 (one vector every shard reads, x_stride = 0);
-//   * column b of a batched call runs exactly the per-vector arithmetic
-//     (grid.y = b), and no kernel uses atomics, so every result is
-//     bitwise-deterministic and batched columns equal per-vector calls.
+//   * column b of a batched call runs exactly the per-vector arithmetic,
+//     and no kernel uses atomics, so every result is bitwise-deterministic
+//     and batched columns equal per-vector calls.  The seg and split kernels
+//     and tile_contrib take one column per grid.y; ell_spmv and
+//     tile_walk_spmv keep RHS_CHUNK columns' sums per thread (grid.y =
+//     chunk), so one load of a matrix entry feeds every column of a chunk.
 // Every launcher returns cudaGetLastError() so a refused launch is seen.
 #pragma once
 #include <cuda_runtime.h>
@@ -19,11 +22,22 @@
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int WARP = 32;
+constexpr int RHS_CHUNK = 8;      // columns of x a thread keeps sums for
 
 __device__ __forceinline__ float warp_sum(float v) {
   // Butterfly: every lane ends with the same, order-fixed sum.
   for (int off = WARP / 2; off > 0; off >>= 1)
     v += __shfl_xor_sync(FULL_MASK, v, off);
+  return v;
+}
+
+// The same butterfly over an aligned group of G lanes (G a power of two
+// <= 32); `mask` names the group's lanes.
+template <int G>
+__device__ __forceinline__ float group_sum(float v, unsigned mask) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(mask, v, off);
   return v;
 }
 

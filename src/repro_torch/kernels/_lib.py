@@ -39,15 +39,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C signatures: (symbol, argtypes).  Pointers and the stream are void*.
 _SIGNATURES = {
-    "rt_ell_spmv": (_P, _P, _P, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I,
-                    _P, _P),
+    "rt_ell_spmv": (_P, _P, _P, _P, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _I,
+                    _I, _P, _P),
     "rt_seg_psum": (_P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _P, _P),
     "rt_seg_fixup": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "rt_split_psum": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
     "rt_split_combine": (_P, _P, _I, _I, _I, _I, _P, _P),
     "rt_tile_spmv": (_P, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _I,
                      _P, _P),
-    "rt_tile_walk_spmv": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "rt_tile_walk_spmv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
 }
 
 _lib = None

@@ -242,7 +242,8 @@ def _format_arrays(fmt, cls, fields, num_rows, what: str):
 
 def _ell(dev, data, cols, ovf, x):
     """One matrix through the ELL/HYB kernel (S = 1); ``ovf`` is
-    (rows, cols, vals), reordered by row for the kernel's ranges."""
+    (rows, cols, vals), reordered by row for the kernel's ranges.  The
+    caller's slab has no length table, so every slot counts as real."""
     data, cols = _on(dev, data), _idx(dev, cols)
     xb, batched = _x_in(dev, x)
     M = data.shape[0]
@@ -334,12 +335,14 @@ def split_flat_spmv(vals, cols, rows, pieces, x, *, num_rows: int,
 def tile_spmv(tile: TileMatrix, x, *, num_rows: int | None = None,
               device="cuda"):
     """Bitmask-tiled SpMV: the walk over each block row's occupied tiles
-    (``tile_walk_spmv``), x addressed by block column."""
+    (``tile_walk_spmv``), x addressed by block column; the kernel reads
+    only the cells ``tile.mask`` marks."""
     dev = resolve_device(device)
     num_rows = tile.shape[0] if num_rows is None else num_rows
     xb, batched = _x_in(dev, x)
     y = tile_walk_spmv(_on(dev, tile.data), _idx(dev, tile.tile_cols),
-                       _idx(dev, tile.tile_ptr), xb)
+                       _idx(dev, tile.tile_ptr), xb,
+                       mask=_on(dev, tile.mask, torch.uint8))
     return _y_out(y[:, :num_rows], batched)
 
 
@@ -362,7 +365,8 @@ def tile_flat_spmv(data, xcols, trows, x, *, num_rows: int, device="cuda"):
 
 
 def _bell_walk(blocks, bcols, x, dev):
-    """Block-ELL as the tile walk: slot (mb, k) is tile mb*K + k."""
+    """Block-ELL as the tile walk: slot (mb, k) is tile mb*K + k.  The slab
+    has no mask, so every cell is read."""
     blocks = _on(dev, blocks)
     Mb, K, bm, bn = blocks.shape
     ptr = torch.arange(Mb + 1, dtype=torch.int32, device=dev) * K
@@ -397,18 +401,20 @@ def _out(out, like, S: int, B: int, R: int):
 
 
 def hyb_stacked(data, cols, ovf_rows, ovf_cols, ovf_vals, ovf_ptr, x, sids,
-                *, out=None):
-    """ELL slab + the COO overflow tail, fused in one kernel."""
+                *, ell_len=None, out=None):
+    """ELL slab + the COO overflow tail, fused in one kernel; ``ell_len``
+    (S, R) bounds each row's real slots (None: every slot)."""
     return _ell_kernel(data, cols, ovf_rows, ovf_cols, ovf_vals, ovf_ptr, x,
-                       sids, out=out)
+                       sids, ell_len=ell_len, out=out)
 
 
-def ell_stacked(data, cols, x, sids, *, out=None):
+def ell_stacked(data, cols, x, sids, *, ell_len=None, out=None):
     """Padded-ELL SpMV (no overflow tail)."""
     S, R, _ = data.shape
     z = torch.zeros((S, 1), dtype=torch.int32, device=data.device)
     ptr = torch.zeros((S, R + 1), dtype=torch.int32, device=data.device)
-    return _ell_kernel(data, cols, z, z, z.float(), ptr, x, sids, out=out)
+    return _ell_kernel(data, cols, z, z, z.float(), ptr, x, sids,
+                       ell_len=ell_len, out=out)
 
 
 def _seg_fixup(psum, pieces, piece_ptr, sids, out):

@@ -22,6 +22,11 @@
 
   with x taken as 0 past its end.  The TPU kernel's K-padded walk tables
   and masked slots have no counterpart: the kernel walks ``tile_ptr``.
+  ``mask`` (T, bm, bn/8) is the TileMatrix's packed occupancy: the kernel
+  reads only the cells it marks (``mask=None``: every cell).  The plain
+  version multiplies whole tiles and ignores ``mask``, so the card's check
+  of the kernel against it also checks that the skipped cells held
+  nothing.
 """
 from __future__ import annotations
 
@@ -81,9 +86,10 @@ def tile_contrib(data, xcol, brow, tile_ptr, x, sids, *, out=None):
     return out
 
 
-def tile_walk_spmv_plain(data, tile_cols, tile_ptr, x, out):
+def tile_walk_spmv_plain(data, tile_cols, tile_ptr, x, out, mask=None):
     """Gather each tile's x block (x zero-padded to whole blocks), form the
-    (bm, bn) @ (bn,) products, and sum them per block row in tile order."""
+    (bm, bn) @ (bn,) products of whole tiles, and sum them per block row
+    in tile order.  ``mask`` is taken and ignored."""
     T, bm, bn = data.shape
     B, n = x.shape
     Mb = tile_ptr.numel() - 1
@@ -99,7 +105,7 @@ def tile_walk_spmv_plain(data, tile_cols, tile_ptr, x, out):
     return out
 
 
-def tile_walk_spmv(data, tile_cols, tile_ptr, x, *, out=None):
+def tile_walk_spmv(data, tile_cols, tile_ptr, x, *, mask=None, out=None):
     """The tile walk for the batch-major vectors ``x`` (B, n); returns
     ``out`` (B, Mb*bm).  A CUDA tensor launches the kernel; a CPU tensor
     runs :func:`tile_walk_spmv_plain`."""
@@ -110,19 +116,26 @@ def tile_walk_spmv(data, tile_cols, tile_ptr, x, *, out=None):
         out = torch.empty((B, Mb * bm), dtype=torch.float32,
                           device=data.device)
     if data.device.type == "cpu":
-        return tile_walk_spmv_plain(data, tile_cols, tile_ptr, x, out)
+        return tile_walk_spmv_plain(data, tile_cols, tile_ptr, x, out, mask)
     f32, i32 = torch.float32, torch.int32
     _lib.check(data.device, data=(data, f32, 3),
                tile_cols=(tile_cols, i32, 1), tile_ptr=(tile_ptr, i32, 1),
                x=(x, f32, 2), out=(out, f32, 2))
+    if mask is not None:
+        _lib.check(data.device, mask=(mask, torch.uint8, 3))
     if bn != 128 or bm % 8 or bm == 0:
         raise ValueError(f"tile_walk_spmv: the kernel takes (8k, 128) "
                          f"tiles, got {(bm, bn)}")
-    if tile_cols.numel() != T or out.shape != (B, Mb * bm):
+    if tile_cols.numel() != T or out.shape != (B, Mb * bm) \
+            or (mask is not None and mask.shape != (T, bm, bn // 8)):
         raise ValueError("tile_walk_spmv: operand shapes disagree")
+    if data.data_ptr() % 16 or (mask is not None and mask.data_ptr() % 16):
+        raise ValueError("tile_walk_spmv: data and mask must be 16-byte "
+                         "aligned")
     if Mb == 0 or B == 0:
         return out
     _lib.call("tile_walk_spmv", "rt_tile_walk_spmv", data.data_ptr(),
+              None if mask is None else mask.data_ptr(),
               tile_cols.data_ptr(), tile_ptr.data_ptr(), x.data_ptr(), Mb, bm,
               bn, n, B, out.data_ptr())
     return out

@@ -4,15 +4,19 @@ Needs an NVIDIA GPU with ``nvcc``; skips without one.  Run on a GPU host:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import program as P
-from repro_torch.core.sparse_matrix import csr_from_coo, csr_matvec
+from repro_torch.core.sparse_matrix import csr_from_coo, csr_matvec, \
+    csr_to_bcsr
 from repro_torch.core.spmv import SpmvPlan
 from repro_torch.data import matrices as mats
-from repro_torch.kernels import _lib, ops, spmv_split, spmv_tile
+from repro_torch.kernels import _lib, ops, spmv_ell, spmv_split, spmv_tile
 
 pytestmark = pytest.mark.cuda
 
@@ -90,27 +94,152 @@ def test_split_psum_and_split_spmv_on_card(device, ns):
                                                    device=device))
 
 
-@pytest.mark.parametrize("bm", [8, 16, 128])
-def test_tile_walk_and_tile_spmv_on_card(device, bm):
+def _cut_tail():
     # 4000 columns, so the last x block is cut (4000 % 128 != 0); rows
     # 800-1599 emptied, so whole block rows have no tiles
     P = mats.powerlaw_tail(4000, 4000 * 8, n_monster=2, seed=0)
     rows = np.repeat(np.arange(4000), np.diff(P.row_ptr))
     keep = (rows < 800) | (rows >= 1600)
-    A = csr_from_coo(rows[keep], P.col_index[keep], P.values[keep],
-                     P.shape)
+    return csr_from_coo(rows[keep], P.col_index[keep], P.values[keep],
+                        P.shape)
+
+
+def _stored_zeros(A, every=7):
+    """A with every 7th entry an explicit zero (kept in every format)."""
+    vals = A.values.copy()
+    vals[::every] = 0.0
+    return dataclasses.replace(A, values=vals)
+
+
+@pytest.mark.parametrize("bm", [8, 16, 128])
+def test_tile_walk_and_tile_spmv_on_card(device, bm):
+    A = _cut_tail()
     t = ops.tile_from_csr(A, bm=bm)
     assert (np.diff(t.tile_ptr) == 0).any()
-    data, tcols, tptr = (torch.from_numpy(a).to(device) for a in (
-        t.data, t.tile_cols, t.tile_ptr))
+    data, tcols, tptr, mask = (torch.from_numpy(a).to(device) for a in (
+        t.data, t.tile_cols, t.tile_ptr, t.mask))
     x = _x(A.ncols, 3)
     xb = torch.from_numpy(x.T.copy()).to(device)
-    _card_and_plain(spmv_tile.tile_walk_spmv, spmv_tile.tile_walk_spmv_plain,
-                    (data, tcols, tptr, xb), (data.abs(), tcols, tptr,
-                                              xb.abs()))
+    _card_and_plain(
+        lambda *a: spmv_tile.tile_walk_spmv(*a, mask=mask),
+        spmv_tile.tile_walk_spmv_plain, (data, tcols, tptr, xb),
+        (data.abs(), tcols, tptr, xb.abs()))
     y = ops.tile_spmv(t, x, device=device)
     np.testing.assert_allclose(y.cpu(), csr_matvec(A, x), rtol=2e-4,
                                atol=2e-4)
     for b in range(3):
         assert torch.equal(y[:, b], ops.tile_spmv(t, x[:, b].copy(),
                                                   device=device))
+
+
+def _columns_match_single(kernel, xb, col_dim):
+    """Every column of the batched call equals the single-vector call on
+    it, bitwise; xb is batch-major with the batch at ``col_dim``."""
+    got = kernel(xb)
+    for b in range(xb.shape[col_dim]):
+        one = kernel(xb.narrow(col_dim, b, 1).contiguous())
+        assert torch.equal(got.narrow(col_dim, b, 1), one)
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 11])
+@pytest.mark.parametrize("bm", [8, 16, 128])
+def test_tile_walk_reads_only_occupied_cells(device, bm, B):
+    # stored zeros, block rows without tiles, a cut last x block, and a
+    # column (`hole`) no row has an entry in; B = 11 spans two chunks of 8
+    # columns
+    C = _stored_zeros(_cut_tail())
+    rows = np.repeat(np.arange(C.nrows), np.diff(C.row_ptr))
+    hole = 130
+    keep = C.col_index != hole
+    A = csr_from_coo(rows[keep], C.col_index[keep], C.values[keep], C.shape)
+    t = ops.tile_from_csr(A, bm=bm)
+    assert (t.tile_cols == hole // 128).any() and (A.values == 0).any()
+    data, tcols, tptr, mask = (torch.from_numpy(a).to(device) for a in (
+        t.data, t.tile_cols, t.tile_ptr, t.mask))
+    x = _x(A.ncols, B)
+    xb = torch.from_numpy(x.T.copy()).to(device)
+
+    def walk(v):
+        return spmv_tile.tile_walk_spmv(data, tcols, tptr, v, mask=mask)
+    _card_and_plain(lambda *a: walk(a[3]), spmv_tile.tile_walk_spmv_plain,
+                    (data, tcols, tptr, xb),
+                    (data.abs(), tcols, tptr, xb.abs()))
+    _columns_match_single(walk, xb, 0)
+    # CSR semantics: a non-finite x in an unoccupied cell is never read
+    poisoned = xb.clone()
+    poisoned[:, hole] = float("inf")
+    zeroed = xb.clone()
+    zeroed[:, hole] = 0.0
+    assert torch.equal(walk(poisoned), walk(zeroed))
+
+
+def test_bell_shim_null_mask_on_card(device):
+    # the Block-ELL slab has no mask: every cell is read, zero-padded
+    # block slots included
+    A = _stored_zeros(_cut_tail())
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        blocks, bcols = ops.bell_from_bcsr(csr_to_bcsr(A, (8, 128)))
+        X = _x(A.ncols, 11)
+        Y = ops.bell_spmm(blocks, bcols, X, device=device)
+        Y_cpu = ops.bell_spmm(blocks, bcols, X, device="cpu")
+        np.testing.assert_allclose(Y.cpu(), Y_cpu, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(Y.cpu()[:A.nrows], csr_matvec(A, X),
+                                   rtol=2e-4, atol=2e-4)
+        for b in (0, 5, 10):
+            y1 = ops.bell_spmv(blocks, bcols, X[:, b].copy(), device=device)
+            assert torch.equal(Y[:, b], y1)
+
+
+ELL_PLANS = {
+    "hyb-halo": dict(num_shards=2, kernel="hyb", exchange="halo"),
+    "ell-cyclic": dict(num_shards=2, kernel="ell", layout="cyclic",
+                       exchange="allgather"),
+}
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 11])
+@pytest.mark.parametrize("plan", sorted(ELL_PLANS))
+def test_ell_reads_only_real_slots(device, plan, B):
+    # stored zeros, rows of length 0 (the other pass's rows), HYB overflow
+    A = _stored_zeros(mats.powerlaw_tail(1024, 1024 * 12, n_monster=4,
+                                         seed=0))
+    prog = P.lower(A, SpmvPlan(**ELL_PLANS[plan]))
+    run = P.make_program_spmv_fn(prog, device=device)
+    x = torch.from_numpy(prog.x_to_device(_x(A.ncols, B))).to(device)
+    T = run.operands
+    (fam, sids), = run.families.items()
+    for pre, xbuf in zip(("loc_", "rem_"), run.buffers(x)):
+        a = [T[pre + k] for k in ("ell_data", "ell_cols", "ovf_rows",
+                                  "ovf_cols", "ovf_vals", "ovf_ptr")]
+        ell_len = T[pre + "ell_len"]
+        assert (ell_len == 0).any()
+
+        def kernel(v):
+            return spmv_ell.ell_spmv(*a, v, sids, ell_len=ell_len)
+        absa = [a[0].abs()] + a[1:4] + [a[4].abs(), a[5]]
+        _card_and_plain(lambda *args: kernel(args[6]),
+                        spmv_ell.ell_spmv_plain, (*a, xbuf, sids),
+                        (*absa, xbuf.abs(), sids))
+        _columns_match_single(kernel, xbuf, 1)
+    y = run(x)
+    np.testing.assert_allclose(P.gather_b(prog, y),
+                               csr_matvec(A, _x(A.ncols, B)), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_ell_api_reads_every_slot_on_card(device):
+    # the per-format API passes no length table: every slot is real
+    A = _stored_zeros(mats.powerlaw_tail(4096, 4096 * 16, n_monster=4,
+                                         seed=0))
+    hyb = ops.hyb_from_csr(A)
+    X = _x(A.ncols, 11)
+    Y = ops.hyb_spmv(hyb.data, hyb.cols, hyb.overflow_rows,
+                     hyb.overflow_cols, hyb.overflow_vals, X, device=device)
+    np.testing.assert_allclose(Y.cpu()[:A.nrows], csr_matvec(A, X),
+                               rtol=2e-4, atol=2e-4)
+    for b in (0, 7, 8, 10):
+        y1 = ops.hyb_spmv(hyb.data, hyb.cols, hyb.overflow_rows,
+                          hyb.overflow_cols, hyb.overflow_vals,
+                          X[:, b].copy(), device=device)
+        assert torch.equal(Y[:, b], y1)

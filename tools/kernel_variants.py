@@ -1,0 +1,220 @@
+#!/usr/bin/env python3
+"""Time two kernels at each value of their tuning constant on one GPU.
+
+    python3 tools/kernel_variants.py
+
+Compiles a kernel source once for each value of one ``constexpr`` into its
+own library under ``build/kernel_variants/``, then times each library's
+launches with CUDA events (replayed as CUDA graphs), two turns in a row:
+
+* ``spmv_tile.cu``'s ``STEPS`` (warp steps whose masks and first cells
+  the tile walk loads at once): 1, 2, 4, 8, on the api/tile case of
+  ``chip_smoke.py`` (``tile_from_csr(blocked_band(131072, 32·131072))``);
+* ``spmv_ell.cu``'s ``G`` (lanes a row): 4, 8, 16, 32, on one SpMV's
+  ``ell_spmv`` launches (both passes, each family) of the cop20k_A/ell and
+  blocked_band programs of ``chip_smoke.py``, and on the per-format API's
+  cop20k_A ELL slab (no length table).
+
+Each for one vector and an (N, 8) block.  Every variant is first checked
+against the kernel's plain version (rtol = atol = 1e-5 on |A|·|x|).
+Prints the card's name and power limit, each build's register report,
+and one JSON line per (case, value, turn).  Exits non-zero without CUDA.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+TOL = 1e-5
+
+
+def build(source: str, const: str, values, symbol: str) -> dict:
+    """value -> the C launcher ``symbol`` of ``source`` compiled with
+    ``constexpr int <const> = value``."""
+    from repro_torch.kernels import _lib
+
+    src = (_lib.CSRC / source).read_text()
+    decl = re.compile(rf"constexpr int {const} = \d+;")
+    if not decl.search(src):
+        raise RuntimeError(f"{source} has no constexpr {const}")
+    out = ROOT / "build" / "kernel_variants"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for v in values:
+        stem = out / f"{Path(source).stem}_{const}{v}"
+        stem.with_suffix(".cu").write_text(
+            decl.sub(f"constexpr int {const} = {v};", src))
+        so, cu = stem.with_suffix(".so"), stem.with_suffix(".cu")
+        procs[v] = (so, subprocess.Popen(
+            [_lib._nvcc(), *_lib.NVCC_FLAGS, "-shared", "-I", str(_lib.CSRC),
+             "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for v, (so, proc) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {const} = {v}:\n{text}")
+        print(json.dumps({"source": source, const: v, "ptxas": [
+            ln.strip() for ln in text.splitlines() if "Used" in ln]}))
+        fn = getattr(ctypes.CDLL(str(so)), symbol)
+        fn.argtypes = _lib._SIGNATURES[symbol]
+        fn.restype = ctypes.c_int
+        fns[v] = fn
+    return fns
+
+
+def sweep(torch, case, const, fns, launch, check):
+    """Check, then time, ``launch(fn)`` for every variant, two turns."""
+    import chip_smoke as cs
+
+    for v, fn in fns.items():
+        launch(fn)
+        check(f"{case} {const}={v}")
+    for turn in range(2):
+        for v, fn in fns.items():
+            ms = cs.graph_ms(torch, lambda fn=fn: launch(fn))
+            print(json.dumps({"case": case, const: v, "turn": turn,
+                              "ms": ms}))
+
+
+def close(torch, got, want, scale, what):
+    if not bool(((got - want).abs() <= TOL * (1.0 + scale)).all()):
+        raise AssertionError(f"{what}: disagrees with the plain version")
+
+
+def tile_cases(torch, dev, rng):
+    from repro_torch.data import matrices as mats
+    from repro_torch.kernels import ops, spmv_tile
+
+    fns = build("spmv_tile.cu", "STEPS", (1, 2, 4, 8), "rt_tile_walk_spmv")
+    M = 131072
+    t = ops.tile_from_csr(mats.blocked_band(M, 32 * M, seed=0))
+    data, tcols, tptr, mask = (torch.from_numpy(np.ascontiguousarray(a)).to(
+        dev) for a in (t.data, t.tile_cols, t.tile_ptr, t.mask))
+    Mb, n = tptr.numel() - 1, t.shape[1]
+    for B in (1, 8):
+        xb = torch.from_numpy(rng.standard_normal((B, n)).astype(
+            np.float32)).to(dev)
+        y = torch.empty((B, Mb * t.bm), device=dev)
+
+        def launch(fn, x=xb, out=y):
+            err = fn(data.data_ptr(), mask.data_ptr(), tcols.data_ptr(),
+                     tptr.data_ptr(), x.data_ptr(), Mb, t.bm, t.bn, n,
+                     x.shape[0], out.data_ptr(),
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"launch failed: cudaError {err}")
+
+        def check(what, xb=xb, y=y):
+            want = spmv_tile.tile_walk_spmv_plain(data, tcols, tptr, xb,
+                                                  torch.empty_like(y))
+            scale = spmv_tile.tile_walk_spmv_plain(
+                data.abs(), tcols, tptr, xb.abs(), torch.empty_like(y))
+            close(torch, y, want, scale, what)
+        sweep(torch, f"api/tile B={B}", "STEPS", fns, launch, check)
+
+
+def ell_cases(torch, dev, rng):
+    import chip_smoke as cs
+    from repro_torch.core import program as P
+    from repro_torch.core.sparse_matrix import csr_to_ell
+    from repro_torch.kernels import _lib, spmv_ell
+
+    fns = build("spmv_ell.cu", "G", (4, 8, 16, 32), "rt_ell_spmv")
+
+    def operand_sets(run, pre, xbuf):
+        T = run.operands
+        for fam in ("ell", "hyb"):
+            if fam in run.families:
+                yield [T[pre + k] for k in (
+                    "ell_data", "ell_cols", "ovf_rows", "ovf_cols",
+                    "ovf_vals", "ovf_ptr")], T[pre + "ell_len"], xbuf, \
+                    run.families[fam]
+
+    def time_sets(case, sets):
+        outs = [torch.empty((a[0].shape[0], x.shape[1], a[0].shape[1]),
+                            device=dev) for a, _, x, _ in sets]
+
+        def launch(fn, sets=sets, outs=outs):
+            for (a, ell_len, x, sids), out in zip(sets, outs):
+                data, cols, _, ovf_cols, ovf_vals, ovf_ptr = a
+                err = fn(data.data_ptr(), cols.data_ptr(),
+                         None if ell_len is None else ell_len.data_ptr(),
+                         ovf_ptr.data_ptr(), ovf_cols.data_ptr(),
+                         ovf_vals.data_ptr(), x.data_ptr(), _lib.x_stride(x),
+                         sids.data_ptr(), sids.numel(), data.shape[1],
+                         data.shape[2], ovf_vals.shape[1], x.shape[2],
+                         x.shape[1], out.data_ptr(),
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"launch failed: cudaError {err}")
+
+        def check(what):
+            for (a, _, x, sids), out in zip(sets, outs):
+                rows = sids.long()
+                want = spmv_ell.ell_spmv_plain(*a, x, sids,
+                                               torch.empty_like(out))
+                absa = [a[0].abs()] + a[1:4] + [a[4].abs(), a[5]]
+                scale = spmv_ell.ell_spmv_plain(*absa, x.abs(), sids,
+                                                torch.empty_like(out))
+                close(torch, out[rows], want[rows], scale[rows], what)
+        sweep(torch, case, "G", fns, launch, check)
+
+    cop = None
+    for label, build_matrix, plans in cs.phases():
+        if label not in ("cop20k_A", "blocked_band"):
+            continue
+        A = build_matrix()
+        cop = A if label == "cop20k_A" else cop
+        for plan_label, plan in plans:
+            if plan_label == "cop20k_A/seg":
+                continue
+            prog = P.lower(A, plan)
+            run = P.make_program_spmv_fn(prog, device=dev)
+            for B in (1, 8):
+                x = rng.standard_normal((A.ncols, B)).astype(np.float32)
+                xb, xg = run.buffers(torch.from_numpy(
+                    prog.x_to_device(x)).to(dev))
+                sets = [s for pre, buf in (("loc_", xb), ("rem_", xg))
+                        for s in operand_sets(run, pre, buf)]
+                time_sets(f"{plan_label} B={B}", sets)
+    ell = csr_to_ell(cop)
+    data, cols = (torch.from_numpy(a).to(dev) for a in (ell.data, ell.cols))
+    z = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    ptr = torch.zeros((1, data.shape[0] + 1), dtype=torch.int32, device=dev)
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    for B in (1, 8):
+        x = torch.from_numpy(rng.standard_normal((1, B, cop.ncols)).astype(
+            np.float32)).to(dev)
+        time_sets(f"api/ell B={B}",
+                  [([data[None], cols[None], z, z, z.float(), ptr], None, x,
+                    one)])
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_variants: CUDA is not available", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    tile_cases(torch, dev, rng)
+    ell_cases(torch, dev, rng)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
