@@ -32,7 +32,9 @@ each batched column against the per-vector call bitwise.  Every kernel
 launch of one SpMV is then replayed against its plain PyTorch version
 on the same inputs (rtol = atol = 1e-5 on |A|·|x|-scaled values; the
 carry fix-up and the combine exactly) and timed with CUDA events beside
-its memory bound, the plain version and a PyTorch library call.  Any
+its memory bound, the plain version and a PyTorch library call; the
+seg kernels' launches of the (N, 8) block are replayed, checked and
+timed the same way (``kernels_b8``, ``ms_b8`` in the summary).  Any
 failed check raises.  Exits non-zero, printing no result, without CUDA
 or without the port.
 """
@@ -75,6 +77,8 @@ SOURCE = {
     "split_psum": "src/repro_torch/csrc/spmv_split.cu",
     "tile_walk_spmv": "src/repro_torch/csrc/spmv_tile.cu",
 }
+#: Kernels also replayed, checked and timed on the (N, 8) block.
+BLOCK_KERNELS = ("seg_psum", "seg_fixup")
 #: The phase whose numbers stand for each kernel in the summary line.
 HEADLINE = {"ell_spmv": "cop20k_A/ell", "seg_psum": "cop20k_A/seg",
             "seg_fixup": "cop20k_A/seg", "split_combine": "powerlaw_tail",
@@ -145,8 +149,10 @@ def replays(torch, run, xs):
     4-byte ``ell_len`` of every row; the earlier kernel walked, and this
     counted, the whole padded slab), the overflow entries, pieces and
     tiles only up to each shard's real count (past it the kernels read
-    nothing), every gather (x, and the fix-up's psum) at 4 bytes per
-    distinct position, and the output."""
+    nothing; a piece is its whole 20-byte record, whose sectors the
+    fix-up's reads of 3 or 4 of its ints cover), every gather (x, and the
+    fix-up's psum) at 4 bytes per distinct position, and the output
+    (every (row, split) entry of the fix-up's)."""
     xb, xg = run.buffers(xs)
     out = []
     for pre, x in (("loc_", xb), ("rem_", xg)):
@@ -468,6 +474,9 @@ def run_program(torch, label, A, plan, singles, block, device) -> dict:
     spmv_graph_ms = graph_ms(torch, lambda: fn(xs_single[0]), 10)
     kernels = measure_kernels(torch, prog, fn, xs_single[0],
                               prog_order(singles[0]), device)
+    kernels_b8 = set_bounds(measure_records(torch, [
+        r for r in replays(torch, fn, xs_block)
+        if r["name"] in BLOCK_KERNELS]))
     for name, s in kernels.items():
         s["launches"] = launches[name]
     for name, count in launches.items():
@@ -482,7 +491,7 @@ def run_program(torch, label, A, plan, singles, block, device) -> dict:
                 pipeline_bitwise=pipeline_bitwise,
                 rerun_bitwise=rerun_bitwise,
                 columns_bitwise=columns_bitwise, launches=launches,
-                kernels=kernels)
+                kernels=kernels, kernels_b8=kernels_b8)
 
 
 #: The kernel wrappers the per-format API reaches, by their names in
@@ -729,6 +738,11 @@ def run_api_call(torch, label, A, call, singles, block, device) -> dict:
         call(xs[0])
     kernels = measure_records(torch, [api_record(torch, label, *c)
                                       for c in calls])
+    with recorded_launches(ops) as calls:
+        call(xblk)
+    kernels_b8 = set_bounds(measure_records(torch, [
+        api_record(torch, label, *c) for c in calls
+        if c[0] in BLOCK_KERNELS]))
     A_card = csr_tensor(torch, A.row_ptr, A.col_index, A.values, A.shape,
                         device)
     for name in ("ell_spmv", "seg_psum", "split_psum", "tile_walk_spmv"):
@@ -744,7 +758,7 @@ def run_api_call(torch, label, A, call, singles, block, device) -> dict:
     return dict(phase=label, rows=A.nrows, nnz=A.nnz, requests_s=requests_s,
                 call_ms=call_ms, block8_ms=block_ms, max_scaled_err=err,
                 rerun_bitwise=rerun_bitwise, columns_bitwise=columns_bitwise,
-                launches=launches, kernels=kernels)
+                launches=launches, kernels=kernels, kernels_b8=kernels_b8)
 
 
 def main(argv=None) -> int:
@@ -811,6 +825,8 @@ def main(argv=None) -> int:
             ms=s["ms"], plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=s["library_ms"],
             phase=phase))
+        if name in BLOCK_KERNELS:
+            summary[-1]["ms_b8"] = results[phase]["kernels_b8"][name]["ms"]
         if name == "seg_fixup":
             summary[-1]["note"] = ("the carry fix-up is jnp glue in the "
                                    "reference, not a pallas_call")

@@ -11,87 +11,396 @@
 //
 // What bounds them on the H100: bytes.  The scan reads 8 bytes of
 // vals + cols and gathers 4 bytes of x per element and writes the 4-byte
-// prefix sum; the fix-up reads two psum values per piece.  The TPU kernel
-// scanned a whole (8, 512) tile per grid step in VMEM; a Hopper block has
-// no sequential grid to carry state in, so each chunk is one independent
-// block and the cross-chunk carry is the fix-up's job.
+// prefix sum; the fix-up reads a 20-byte piece record and two psum values
+// per piece and writes every (row, split) output, most of them zeros at
+// NS = 64.  The TPU kernel scanned a whole (8, 512) tile per grid step in
+// VMEM; a Hopper block has no sequential grid to carry state in, so each
+// chunk is scanned independently and the cross-chunk carry is the
+// fix-up's job.
 //
-// Design: seg_psum runs one block of L threads per (chunk, column b):
-// each thread forms one product, and block_inclusive_scan (common.cuh,
-// shared with split_psum) takes a warp scan with shuffles inside each
-// warp, then one pass of warp 0 over the warp totals (in shared memory)
-// adds the carry between warps.  The order is fixed, so the result is
-// deterministic.  seg_fixup runs one
-// thread per output (row r, split t): the row's pieces are a contiguous
-// run of the row-ordered piece table (range from the host table
-// piece_ptr, (S, R+1), built with searchsorted over the shard's real
-// pieces), split-ordered within the row, so a binary search finds split
-// t's run and the thread adds its prefix differences in order.  With
-// num_splits = 1 this is the seg fix-up straight into y; with NS > 1 it
-// fills the split partials stage 2 reduces, and a monster row's chain is
-// walked by NS threads instead of one.  Padded piece rows
-// [0, 1, 0, 0, 0] (lo > hi) are skipped and can never add anything.
+// seg_psum: one warp per chunk, CHUNKS_PER_BLOCK chunks a block, no block
+// barrier.  The warp walks its chunk in steps of 128 elements: each lane
+// loads 4 contiguous elements of vals and cols as one 16-byte load each
+// (neighbouring lanes on neighbouring addresses), gathers x for them and
+// scans its 4 products serially; a shuffle scan over the 32 lane totals
+// and the carry of the previous step (lane 31's last value) complete the
+// prefix sums, stored as one 16-byte store a lane.  The loads and gathers
+// of STEPS_AHEAD steps go out before the first of them is scanned, so a
+// 512-element chunk waits on one round of loads, not four.  A thread
+// keeps up to RHS_CHUNK columns, so one load of vals and cols feeds every
+// column of an (N, B) chunk.  Every add is an explicit round-to-nearest
+// intrinsic in a fixed order: deterministic, and column b of a batched
+// call equals the single-vector call bitwise.
+//
+// seg_fixup: the pieces of shard k's row r are the contiguous run
+// [piece_ptr[r], piece_ptr[r+1]) of the row-ordered piece table,
+// split-ordered within the row, so the ranges come from one coalesced
+// read of piece_ptr; nothing is searched, and a row without pieces costs
+// that read and its zero stores.  A warp owns 32 consecutive rows of a
+// shard:
+//   * short rows (at most LONG_ROW pieces): the lane walks its own row.
+//     It loads all its records, then all their psum pairs (loads that
+//     wait on nothing but the record), then adds the differences in piece
+//     order from 0, restarting at each change of split, and writes all NS
+//     outputs of its row: the run's sum where split t has pieces, 0 where
+//     it has none.  Lanes write neighbouring rows, so each store of split
+//     t is coalesced.
+//   * long rows (more than LONG_ROW pieces) are found with __ballot_sync
+//     (their lanes store the rows' zeros) and then dealt out to the
+//     block's FIXUP_WARPS warps in turn: a matrix's monster rows are
+//     often neighbours, and one warp would walk them one after another.
+//     A warp takes its row in rounds of ROUND = LONG_LOADS * 32 pieces:
+//     lane i loads records base + 32u + i and their psum pairs and puts
+//     the splits and differences in the warp's stage in shared memory;
+//     the next round's records go out; lane b adds column b's differences
+//     in piece order from the stage (4 a 16-byte read), leaving each
+//     piece's running sum there; then every lane stores the sums of the
+//     runs that end at its pieces.  A 256-piece row costs 2 rounds of
+//     dependent loads, not 256: no thread waits on more than two
+//     dependent loads (record, then psum) per 128 pieces, and the in-order
+//     adds read shared memory and store nothing.
+// Each piece is added exactly once, in piece order, starting from 0 for
+// each (row, split): the in-order sum seg_fixup_plain takes with
+// index_add_, bitwise.  Padded piece rows [0, 1, 0, 0, 0] (lo > hi) add
+// nothing.  Record loads feed up to RHS_CHUNK columns, as in seg_psum.
 #include "common.cuh"
 
 namespace {
 
-__global__ void seg_psum_kernel(const float* __restrict__ vals,
-                                const int* __restrict__ cols,
-                                const float* __restrict__ x,
-                                long long x_stride,
-                                const int* __restrict__ sids, int C, int L,
-                                int Lx, int B, float* __restrict__ psum) {
-  __shared__ float warp_tot[WARP];
-  const int k = blockIdx.x / C, c = blockIdx.x % C, b = blockIdx.y;
+constexpr int CHUNKS_PER_BLOCK = 4;     // seg_psum: warps (chunks) a block
+constexpr int LONG_ROW = 2;             // pieces a lane walks alone
+constexpr int LONG_LOADS = 4;           // pieces a lane loads a round of a
+                                        // long row (128 a warp)
+constexpr int FIXUP_WARPS = 8;          // seg_fixup: warps a block
+constexpr int ROUND = LONG_LOADS * WARP;  // a long row's pieces a round
+constexpr int STAGE = ROUND + 4;        // a column's row in the stage
+constexpr int STEP = 4 * WARP;          // elements a warp scans per step
+constexpr int STEPS_AHEAD = 4;          // steps whose loads go out at once
+
+template <int NB>
+__global__ void __launch_bounds__(CHUNKS_PER_BLOCK* WARP)
+    seg_psum_kernel(const float* __restrict__ vals,
+                    const int* __restrict__ cols, const float* __restrict__ x,
+                    long long x_stride, const int* __restrict__ sids,
+                    int n_sids, int C, int L, int Lx, int B,
+                    float* __restrict__ psum) {
+  const int lane = threadIdx.x % WARP;
+  const long long chunk =
+      (long long)blockIdx.x * CHUNKS_PER_BLOCK + threadIdx.x / WARP;
+  if (chunk >= (long long)n_sids * C) return;   // whole warps leave
+  const int k = (int)(chunk / C), c = (int)(chunk % C);
+  const int b0 = blockIdx.y * NB, nb = min(NB, B - b0);
   const int sid = sids[k];
-  const int l = threadIdx.x;
-  const float* xv = shard_x(x, x_stride, sid, b, Lx);
-  const long long off = ((long long)sid * C + c) * L + l;
-  const float v = block_inclusive_scan(__fmul_rn(vals[off], xv[cols[off]]),
-                                       warp_tot);
-  psum[(((long long)k * B + b) * C + c) * L + l] = v;
+  const float* xv = shard_x(x, x_stride, sid, b0, Lx);
+  const long long src = ((long long)sid * C + c) * L;
+  const long long cs = (long long)C * L;        // psum column stride
+  float* dst = psum + ((long long)k * B + b0) * cs + (long long)c * L;
+  float carry[NB];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) carry[b] = 0.f;
+  for (int q0 = 0; q0 < L; q0 += STEP * STEPS_AHEAD) {
+    // the loads of STEPS_AHEAD steps first, then their scans in order
+    float4 v[STEPS_AHEAD];
+    int4 ci[STEPS_AHEAD];
+#pragma unroll
+    for (int u = 0; u < STEPS_AHEAD; ++u) {
+      const int e = q0 + u * STEP + 4 * lane;
+      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      ci[u] = make_int4(0, 0, 0, 0);
+      if (e < L) {                              // L % 4 == 0: all or none
+        v[u] = *reinterpret_cast<const float4*>(vals + src + e);
+        ci[u] = *reinterpret_cast<const int4*>(cols + src + e);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      if (b >= nb) continue;                    // nb is warp-uniform
+      const float* xb = xv + (long long)b * Lx;
+      float4 xg[STEPS_AHEAD];
+#pragma unroll
+      for (int u = 0; u < STEPS_AHEAD; ++u) {
+        xg[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (q0 + u * STEP + 4 * lane < L)
+          xg[u] = make_float4(xb[ci[u].x], xb[ci[u].y], xb[ci[u].z],
+                              xb[ci[u].w]);
+      }
+#pragma unroll
+      for (int u = 0; u < STEPS_AHEAD; ++u) {
+        const int e = q0 + u * STEP + 4 * lane;
+        if (q0 + u * STEP >= L) continue;       // warp-uniform
+        const float s0 = __fmul_rn(v[u].x, xg[u].x);
+        const float s1 = __fadd_rn(s0, __fmul_rn(v[u].y, xg[u].y));
+        const float s2 = __fadd_rn(s1, __fmul_rn(v[u].z, xg[u].z));
+        const float s3 = __fadd_rn(s2, __fmul_rn(v[u].w, xg[u].w));
+        float incl = s3;                        // scan of the lane totals
+#pragma unroll
+        for (int d = 1; d < WARP; d <<= 1) {
+          const float t = __shfl_up_sync(FULL_MASK, incl, d);
+          if (lane >= d) incl = __fadd_rn(t, incl);
+        }
+        float excl = __shfl_up_sync(FULL_MASK, incl, 1);
+        if (lane == 0) excl = 0.f;
+        const float base = __fadd_rn(carry[b], excl);
+        const float4 o = make_float4(__fadd_rn(base, s0), __fadd_rn(base, s1),
+                                     __fadd_rn(base, s2),
+                                     __fadd_rn(base, s3));
+        if (e < L) *reinterpret_cast<float4*>(dst + b * cs + e) = o;
+        carry[b] = __shfl_sync(FULL_MASK, o.w, WARP - 1);
+      }
+    }
+  }
 }
 
-__device__ __forceinline__ int first_piece_of_split(const int* pc, int lo,
-                                                    int hi, int t) {
-  // Pieces of one row are split-ordered: binary search for split >= t.
-  while (lo < hi) {
-    const int mid = (lo + hi) / 2;
-    if (pc[mid * 5 + 4] < t) lo = mid + 1; else hi = mid;
-  }
-  return lo;
+// The prefix difference of one piece on one column's psum row `ps`
+// (chunk already applied); a padded piece (lo > hi) gives 0, which
+// leaves any running sum unchanged (the sums start at +0 and so are
+// never -0).
+__device__ __forceinline__ float piece_diff(const float* ps, int lo, int hi) {
+  if (lo > hi) return 0.f;
+  const float h = ps[hi];
+  return lo > 0 ? __fsub_rn(h, ps[lo - 1]) : h;
 }
 
-__global__ void seg_fixup_kernel(const float* __restrict__ psum,
-                                 const int* __restrict__ pieces,
-                                 const int* __restrict__ piece_ptr,
-                                 const int* __restrict__ sids,
-                                 const int* __restrict__ out_ids, int n_sids,
-                                 int C, int L, int Pp, int R, int NS, int B,
-                                 float* __restrict__ out) {
-  // One thread per (shard, split t, row r): a monster row's carry chain
-  // is cut into NS independent runs, one per split.
-  const long long item = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (item >= (long long)n_sids * NS * R) return;
-  const int r = (int)(item % R);
-  const int t = (int)((item / R) % NS);
-  const int k = (int)(item / ((long long)R * NS)), b = blockIdx.y;
-  const int sid = sids[k];
-  const float* ps = psum + ((long long)k * B + b) * C * L;
-  const int* pc = pieces + (long long)sid * Pp * 5;
-  const int* ptr = piece_ptr + (long long)sid * (R + 1);
-  int p = ptr[r];
-  const int pe = ptr[r + 1];
-  if (NS > 1) p = first_piece_of_split(pc, p, pe, t);
-  float acc = 0.f;
-  for (; p < pe && pc[p * 5 + 4] == t; ++p) {
-    const int lo = pc[p * 5 + 1], hi = pc[p * 5 + 2];
-    if (lo > hi) continue;
-    const float* row = ps + (long long)pc[p * 5] * L;
-    const float d = lo > 0 ? __fsub_rn(row[hi], row[lo - 1]) : row[hi];
-    acc = __fadd_rn(acc, d);
+// Split t's sums of one row for the nb columns; `o` points at the row's
+// output of column 0, split 0.
+template <int NB>
+__device__ __forceinline__ void store_run(float* o, int NS, int R, int t,
+                                          int nb, const float (&v)[NB]) {
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    if (b < nb) o[((long long)b * NS + t) * R] = v[b];
   }
-  out[(((long long)out_ids[k] * B + b) * NS + t) * R + r] = acc;
+}
+
+// A round of a long row's records: lane i holds pieces base + 32u + i; a
+// slot past the row is the padded piece (lo > hi), which adds nothing.
+struct Records {
+  int ch[LONG_LOADS], lo[LONG_LOADS], hi[LONG_LOADS], split[LONG_LOADS];
+};
+
+__device__ __forceinline__ void load_records(const int* pc, int base, int pe,
+                                             int NS, Records& rc) {
+  const int lane = threadIdx.x % WARP;
+#pragma unroll
+  for (int u = 0; u < LONG_LOADS; ++u) {
+    const int p = base + u * WARP + lane;
+    const bool real = p < pe;
+    const int* rec = pc + (long long)p * 5;
+    rc.ch[u] = real ? rec[0] : 0;
+    rc.lo[u] = real ? rec[1] : 1;
+    rc.hi[u] = real ? rec[2] : 0;
+    rc.split[u] = real && NS > 1 ? rec[4] : 0;
+  }
+}
+
+// The whole warp takes one long row's pieces [p, pe) a round at a time.
+// Each round's splits and differences go to the warp's stage in shared
+// memory (`sd` a row of STAGE floats a column, so the folding lanes' 16-byte
+// reads hit distinct banks), the next round's records go out, and lane
+// b < nb adds column b's differences in piece order, 4 a shared-memory
+// read, leaving each piece's running sum in the stage; then every lane
+// stores the sums of the runs that end in its pieces.  `o` points at the
+// row's output of column 0, split 0.
+template <int NB>
+__device__ __forceinline__ void long_row_fixup(
+    const float* ps, long long cs, const int* pc, int p, int pe, int L,
+    int NS, int R, int nb, float* o, float (&sd)[NB][STAGE],
+    int (&ss)[ROUND]) {
+  const int lane = threadIdx.x % WARP;
+  Records rc;
+  load_records(pc, p, pe, NS, rc);
+  float acc = 0.f;                              // lane b: column b's sum
+  int t = -1;                                   // the split being summed
+  for (int base = p; base < pe; base += ROUND) {
+#pragma unroll
+    for (int u = 0; u < LONG_LOADS; ++u) {
+      const int i = u * WARP + lane;
+      ss[i] = rc.split[u];
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        sd[b][i] = b < nb ? piece_diff(ps + b * cs + (long long)rc.ch[u] * L,
+                                       rc.lo[u], rc.hi[u])
+                          : 0.f;
+    }
+    load_records(pc, base + ROUND, pe, NS, rc);   // the next round's
+    __syncwarp();
+    const int cnt = min(ROUND, pe - base);
+    if (lane < nb) {
+#pragma unroll 2
+      for (int i0 = 0; i0 < cnt; i0 += 4) {
+        const int4 t4 = *reinterpret_cast<const int4*>(&ss[i0]);
+        float4 d4 = *reinterpret_cast<const float4*>(&sd[lane][i0]);
+        const int ts[4] = {t4.x, t4.y, t4.z, t4.w};
+        float ds[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (i0 + j < cnt) {
+            acc = ts[j] != t ? 0.f : acc;       // a new run starts from 0
+            acc = __fadd_rn(acc, ds[j]);
+            t = ts[j];
+            ds[j] = acc;
+          }
+        }
+        *reinterpret_cast<float4*>(&sd[lane][i0]) =
+            make_float4(ds[0], ds[1], ds[2], ds[3]);
+      }
+    }
+    __syncwarp();
+    // piece i ends a run where the next piece has another split or the row
+    // ends; the next round's first split is lane 0's first record
+    const int next_split = __shfl_sync(FULL_MASK, rc.split[0], 0);
+#pragma unroll
+    for (int u = 0; u < LONG_LOADS; ++u) {
+      const int i = u * WARP + lane;
+      if (i < cnt) {
+        const int after = i + 1 < cnt ? ss[i + 1]
+                          : base + ROUND < pe ? next_split : -1;
+        if (after != ss[i]) {
+#pragma unroll
+          for (int b = 0; b < NB; ++b)
+            if (b < nb) o[((long long)b * NS + ss[i]) * R] = sd[b][i];
+        }
+      }
+    }
+    __syncwarp();                 // the stage is read before it is refilled
+  }
+}
+
+// Row r of the k-th launched shard: its piece table, psum of column b0
+// and output of column b0, split 0.
+struct FixupRow {
+  const float* ps;
+  const int* pc;
+  const int* ptr;
+  float* o;
+};
+
+__device__ __forceinline__ FixupRow fixup_row(
+    const float* psum, const int* pieces, const int* piece_ptr,
+    const int* sids, const int* out_ids, float* out, int k, int r,
+    long long cs, int Pp, int R, int NS, int B, int b0) {
+  const int sid = sids[k];
+  return {psum + ((long long)k * B + b0) * cs,
+          pieces + (long long)sid * Pp * 5,
+          piece_ptr + (long long)sid * (R + 1),
+          out + ((long long)out_ids[k] * B + b0) * NS * R + r};
+}
+
+// One column: at least 4 blocks an SM, so that the short rows' chain of
+// three dependent loads (piece_ptr, record, psum) has the warps to hide it
+// (left free, ptxas takes 66-68 registers a thread: 3 blocks an SM).
+template <int NB>
+__global__ void __launch_bounds__(FIXUP_WARPS* WARP, NB == 1 ? 4 : 1)
+    seg_fixup_kernel(const float* __restrict__ psum,
+                     const int* __restrict__ pieces,
+                     const int* __restrict__ piece_ptr,
+                     const int* __restrict__ sids,
+                     const int* __restrict__ out_ids, int n_sids, int C,
+                     int L, int Pp, int R, int NS, int B,
+                     float* __restrict__ out) {
+  __shared__ unsigned long_rows[FIXUP_WARPS];   // each warp's, a bit a lane
+  __shared__ __align__(16) float stage_d[FIXUP_WARPS][NB][STAGE];  // a long
+  __shared__ __align__(16) int stage_s[FIXUP_WARPS][ROUND];  // row's round
+  const int lane = threadIdx.x % WARP, warp = threadIdx.x / WARP;
+  const int wps = (R + WARP - 1) / WARP;        // warps a shard
+  const long long warps = (long long)n_sids * wps;
+  const long long w = (long long)blockIdx.x * FIXUP_WARPS + warp;
+  const int b0 = blockIdx.y * NB, nb = min(NB, B - b0);
+  const long long cs = (long long)C * L;        // psum column stride
+  bool long_row = false;
+  if (w < warps) {                              // idle warps still meet
+    const int k = (int)(w / wps);               // the barrier below
+    const int r = (int)(w % wps) * WARP + lane;
+    const bool live = r < R;
+    const FixupRow row = fixup_row(psum, pieces, piece_ptr, sids, out_ids,
+                                   out, k, r, cs, Pp, R, NS, B, b0);
+    const int p = live ? row.ptr[r] : 0;
+    const int pe = live ? row.ptr[r + 1] : 0;
+    long_row = pe - p > LONG_ROW;
+    const int m = long_row ? 0 : pe - p;        // pieces this lane walks
+
+    // -- short rows: records, then psum pairs, then the in-order sums ----
+    int sp[LONG_ROW];
+    float run[LONG_ROW][NB];                    // running sum at piece j
+    {
+      int ch[LONG_ROW], lo[LONG_ROW], hi[LONG_ROW];
+#pragma unroll
+      for (int j = 0; j < LONG_ROW; ++j) {
+        const int* rec = row.pc + (long long)(p + j) * 5;
+        const bool real = j < m;
+        ch[j] = real ? rec[0] : 0;
+        lo[j] = real ? rec[1] : 1;
+        hi[j] = real ? rec[2] : 0;
+        sp[j] = real && NS > 1 ? rec[4] : 0;
+      }
+#pragma unroll
+      for (int j = 0; j < LONG_ROW; ++j) {
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+          run[j][b] = b < nb ? piece_diff(row.ps + b * cs +
+                                              (long long)ch[j] * L,
+                                          lo[j], hi[j])
+                             : 0.f;
+      }
+    }
+    float acc[NB];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) acc[b] = 0.f;
+    int t_last = -1;
+#pragma unroll
+    for (int j = 0; j < LONG_ROW; ++j) {
+      if (j < m) {
+        if (j > 0 && sp[j] != sp[j - 1]) {
+#pragma unroll
+          for (int b = 0; b < NB; ++b) acc[b] = 0.f;
+        }
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          acc[b] = __fadd_rn(acc[b], run[j][b]);
+          run[j][b] = acc[b];
+        }
+        t_last = sp[j];
+      }
+    }
+    if (live && NS == 1) {
+      if (!long_row) store_run<NB>(row.o, 1, R, 0, nb, acc);  // long: below
+    } else if (live) {          // every split of the row; a long row's 0s
+      const int t_first = m ? sp[0] : NS;
+      for (int t = 0; t < NS; ++t) {
+        float v[NB];
+#pragma unroll
+        for (int b = 0; b < NB; ++b) v[b] = 0.f;
+        if (t >= t_first && t <= t_last) {      // the run's last sum wins
+#pragma unroll
+          for (int j = 0; j < LONG_ROW; ++j) {
+            if (j < m && sp[j] == t) {
+#pragma unroll
+              for (int b = 0; b < NB; ++b) v[b] = run[j][b];
+            }
+          }
+        }
+        store_run<NB>(row.o, NS, R, t, nb, v);
+      }
+    }
+  }
+
+  // -- long rows: the block's, dealt out to its warps in turn -------------
+  const unsigned mine = __ballot_sync(FULL_MASK, long_row);
+  if (lane == 0) long_rows[warp] = mine;
+  __syncthreads();         // a long row's zero stores land before its sums
+  int rank = 0;
+  for (int v = 0; v < FIXUP_WARPS; ++v) {
+    for (unsigned mask = long_rows[v]; mask; mask &= mask - 1) {
+      if (rank++ % FIXUP_WARPS != warp) continue;
+      const long long wv = (long long)blockIdx.x * FIXUP_WARPS + v;
+      const int k = (int)(wv / wps);
+      const int r = (int)(wv % wps) * WARP + __ffs(mask) - 1;
+      const FixupRow row = fixup_row(psum, pieces, piece_ptr, sids, out_ids,
+                                     out, k, r, cs, Pp, R, NS, B, b0);
+      long_row_fixup<NB>(row.ps, cs, row.pc, row.ptr[r], row.ptr[r + 1], L,
+                         NS, R, nb, row.o, stage_d[warp], stage_s[warp]);
+    }
+  }
 }
 
 }  // namespace
@@ -99,10 +408,20 @@ __global__ void seg_fixup_kernel(const float* __restrict__ psum,
 RT_API int rt_seg_psum(const float* vals, const int* cols, const float* x,
                        long long x_stride, const int* sids, int n_sids, int C,
                        int L, int Lx, int B, float* psum, void* stream) {
-  if ((long long)n_sids * C == 0 || B == 0) return 0;
-  dim3 grid((unsigned)(n_sids * C), (unsigned)B);
-  seg_psum_kernel<<<grid, L, 0, (cudaStream_t)stream>>>(
-      vals, cols, x, x_stride, sids, C, L, Lx, B, psum);
+  const long long chunks = (long long)n_sids * C;
+  if (chunks == 0 || B == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const unsigned blocks =
+      (unsigned)((chunks + CHUNKS_PER_BLOCK - 1) / CHUNKS_PER_BLOCK);
+  constexpr int threads = CHUNKS_PER_BLOCK * WARP;
+  if (B == 1)
+    seg_psum_kernel<1><<<blocks, threads, 0, s>>>(vals, cols, x, x_stride,
+                                                  sids, n_sids, C, L, Lx, B,
+                                                  psum);
+  else
+    seg_psum_kernel<RHS_CHUNK>
+        <<<dim3(blocks, (B + RHS_CHUNK - 1) / RHS_CHUNK), threads, 0, s>>>(
+            vals, cols, x, x_stride, sids, n_sids, C, L, Lx, B, psum);
   return (int)cudaGetLastError();
 }
 
@@ -110,12 +429,19 @@ RT_API int rt_seg_fixup(const float* psum, const int* pieces,
                         const int* piece_ptr, const int* sids,
                         const int* out_ids, int n_sids, int C, int L, int Pp,
                         int R, int NS, int B, float* out, void* stream) {
-  const long long items = (long long)n_sids * NS * R;
-  if (items == 0 || B == 0) return 0;
-  constexpr int THREADS = 256;
-  dim3 grid((unsigned)((items + THREADS - 1) / THREADS), (unsigned)B);
-  seg_fixup_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      psum, pieces, piece_ptr, sids, out_ids, n_sids, C, L, Pp, R, NS, B,
-      out);
+  const long long warps = (long long)n_sids * ((R + WARP - 1) / WARP);
+  if (warps == 0 || B == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const unsigned blocks = (unsigned)((warps + FIXUP_WARPS - 1) / FIXUP_WARPS);
+  constexpr int threads = FIXUP_WARPS * WARP;
+  if (B == 1)
+    seg_fixup_kernel<1><<<blocks, threads, 0, s>>>(
+        psum, pieces, piece_ptr, sids, out_ids, n_sids, C, L, Pp, R, NS, B,
+        out);
+  else
+    seg_fixup_kernel<RHS_CHUNK>
+        <<<dim3(blocks, (B + RHS_CHUNK - 1) / RHS_CHUNK), threads, 0, s>>>(
+            psum, pieces, piece_ptr, sids, out_ids, n_sids, C, L, Pp, R, NS,
+            B, out);
   return (int)cudaGetLastError();
 }

@@ -19,7 +19,7 @@
 // Design.  The TPU's 2-D (NS, Cs / tc) grid existed so that a slab of
 // few chunks still filled the grid steps; on Hopper every chunk of the
 // (NS * Cs, L) view is one independent block of L threads anyway, so
-// split_psum is seg_psum's scan (block_inclusive_scan, common.cuh) over
+// split_psum is a block scan (block_inclusive_scan, common.cuh) over
 // that view with one shared x: Cs needs no sublane padding and NS no
 // divisor.  split_combine: one thread owns one row and walks the split
 // axis, so neighbouring threads read neighbouring rows (coalesced) and

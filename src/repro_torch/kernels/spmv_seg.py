@@ -49,7 +49,10 @@ def seg_psum(vals, cols, x, sids, *, out=None):
         raise ValueError("seg_psum: operand shapes disagree")
     if L % 32 or not 0 < L <= 1024:
         raise ValueError(f"seg_psum: chunk {L} must be a multiple of 32 "
-                         f"and at most 1024 (one thread per element)")
+                         f"and at most 1024")
+    if any(t.data_ptr() % 16 for t in (vals, cols, out)):
+        raise ValueError("seg_psum: vals, cols and out must be 16-byte "
+                         "aligned (the kernel moves 4 elements a load)")
     if n == 0 or B == 0:
         return out
     _lib.call("seg_psum", "rt_seg_psum", vals.data_ptr(), cols.data_ptr(),

@@ -5,6 +5,7 @@ Needs an NVIDIA GPU with ``nvcc``; skips without one.  Run on a GPU host:
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import re
 import warnings
 
 import numpy as np
@@ -16,7 +17,8 @@ from repro_torch.core.sparse_matrix import csr_from_coo, csr_matvec, \
     csr_to_bcsr
 from repro_torch.core.spmv import SpmvPlan
 from repro_torch.data import matrices as mats
-from repro_torch.kernels import _lib, ops, spmv_ell, spmv_split, spmv_tile
+from repro_torch.kernels import _lib, ops, spmv_ell, spmv_seg, spmv_split, \
+    spmv_tile
 
 pytestmark = pytest.mark.cuda
 
@@ -243,3 +245,99 @@ def test_ell_api_reads_every_slot_on_card(device):
                           hyb.overflow_cols, hyb.overflow_vals,
                           X[:, b].copy(), device=device)
         assert torch.equal(Y[:, b], y1)
+
+
+#: Pieces a lane of the carry fix-up walks alone (``csrc/spmv_seg.cu``).
+LONG_ROW = int(re.search(r"constexpr int LONG_ROW = (\d+);",
+                         (_lib.CSRC / "spmv_seg.cu").read_text()).group(1))
+
+
+def fixup_case(ns, B, *, seed=0, S=3, R=160, C=24, L=64):
+    """The carry fix-up's operands on the CPU: psum (2, B, C, L) of the
+    shards sids = [2, 0] of S, each shard's row-ordered piece table
+    (S, Pp, 5) and its piece_ptr (S, R+1), the out_ids and out's shape.
+
+    Rows of every kind: none, 1, 2, LONG_ROW - 1, LONG_ROW, LONG_ROW + 1
+    (either side of the long-row threshold), 31, 32, 33, 64, 65 (whole and
+    cut batches of 32) and 1,037 in one split; with NS > 1 the others take
+    sorted random splits.  Row 0 starts with two padded piece rows
+    [0, 1, 0, 0, 0], where the per-format API's sort puts them, and each
+    table is padded past its real pieces, as the executor pads it."""
+    rng = np.random.default_rng(seed)
+    sizes = (1, 2, LONG_ROW - 1, LONG_ROW, LONG_ROW + 1, 31, 32, 33, 64, 65,
+             1037)
+    pad = np.array([[0, 1, 0, 0, 0]] * 2)
+    tables = []
+    for _ in range(S):
+        counts = rng.choice([0, 0, 0, 1, 1, 2, 3], size=R)
+        counts[rng.choice(np.arange(1, R), len(sizes), replace=False)] = sizes
+        recs = [pad]
+        for r, c in enumerate(counts):
+            split = (np.full(c, rng.integers(ns)) if c >= 1000
+                     else np.sort(rng.integers(0, ns, c)))
+            a, b = rng.integers(0, L, (2, c))
+            lo = np.where(rng.random(c) < 0.3, 0, np.minimum(a, b))
+            recs.append(np.stack([rng.integers(0, C, c), lo, np.maximum(a, b),
+                                  np.full(c, r), split], 1))
+        tables.append(np.concatenate(recs).astype(np.int32))
+    Pp = max(len(t) for t in tables) + 5
+    pieces = np.tile(np.array([0, 1, 0, 0, 0], np.int32), (S, Pp, 1))
+    ptr = np.zeros((S, R + 1), np.int32)
+    for s, t in enumerate(tables):
+        pieces[s, :len(t)] = t
+        ptr[s] = np.searchsorted(t[:, 3], np.arange(R + 1))
+    psum = rng.standard_normal((2, B, C, L)).astype(np.float32)
+    sids = torch.tensor([2, 0], dtype=torch.int32)
+    ids = sids if ns == 1 else torch.arange(2, dtype=torch.int32)
+    shape = (S, B, R) if ns == 1 else (2, B, ns, R)
+    return (torch.from_numpy(psum), torch.from_numpy(pieces),
+            torch.from_numpy(ptr), sids, ids, shape)
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 11])
+@pytest.mark.parametrize("ns", [1, 8, 64])
+def test_seg_fixup_on_card_equals_plain(device, ns, B):
+    # bitwise against the plain version on CPU copies; out starts as NaN,
+    # so an entry the kernel does not write shows
+    psum, pcs, ptr, sids, ids, shape = fixup_case(ns, B)
+    o = ids.long()
+    want = spmv_seg.seg_fixup_plain(psum, pcs, ptr, sids, ids,
+                                    torch.full(shape, float("nan")))[o]
+    args = [t.to(device) for t in (psum, pcs, ptr, sids, ids)]
+
+    def fixup(ps):
+        return spmv_seg.seg_fixup(ps, *args[1:], num_splits=ns, out=torch.full(
+            shape[:1] + (ps.shape[1],) + shape[2:], float("nan"),
+            device=device))
+    _lib.reset_launch_counts()
+    got = fixup(args[0])
+    torch.cuda.synchronize()
+    assert _lib.launch_counts["seg_fixup"] == 1
+    assert torch.equal(got.cpu()[o], want)
+    assert torch.equal(fixup(args[0])[o], got[o])
+    for b in {0, B // 2, B - 1}:
+        one = fixup(args[0][:, b:b + 1].contiguous())
+        assert torch.equal(one[o][:, 0], got[o][:, b])
+
+
+@pytest.mark.parametrize("L", [32, 128, 512, 1024])
+def test_seg_psum_on_card(device, L):
+    # two shards (the second a sign-flipped copy) read in reverse order,
+    # per-shard and shared x; B = 11 spans two chunks of 8 columns
+    A = mats.powerlaw_tail(4096, 4096 * 8, n_monster=2, seed=0)
+    seg = ops.seg_from_csr(A, chunk=L, lane=32)
+    assert seg.vals.shape[1] == L
+    vals = torch.from_numpy(np.stack([seg.vals, -seg.vals])).to(device)
+    cols = torch.from_numpy(np.stack([seg.cols, seg.cols])).to(device)
+    sids = torch.tensor([1, 0], dtype=torch.int32, device=device)
+    for Sx in (2, 1):
+        x = torch.from_numpy(np.ascontiguousarray(np.stack(
+            [_x(A.ncols, 11).T] * Sx))).to(device)
+        _card_and_plain(spmv_seg.seg_psum, spmv_seg.seg_psum_plain,
+                        (vals, cols, x, sids),
+                        (vals.abs(), cols, x.abs(), sids))
+
+        def psum(v):
+            return spmv_seg.seg_psum(vals, cols, v, sids)
+        _columns_match_single(psum, x, 1)
+        assert torch.equal(psum(x), psum(x))

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time two kernels at each value of their tuning constant on one GPU.
+"""Time kernels at each value of their tuning constant on one GPU.
 
     python3 tools/kernel_variants.py
 
@@ -13,10 +13,18 @@ launches with CUDA events (replayed as CUDA graphs), two turns in a row:
 * ``spmv_ell.cu``'s ``G`` (lanes a row): 4, 8, 16, 32, on one SpMV's
   ``ell_spmv`` launches (both passes, each family) of the cop20k_A/ell and
   blocked_band programs of ``chip_smoke.py``, and on the per-format API's
-  cop20k_A ELL slab (no length table).
+  cop20k_A ELL slab (no length table);
+* ``spmv_seg.cu``'s ``LONG_ROW`` (pieces a lane of the carry fix-up walks
+  alone before the block's warps take the row): 2, 4, 8, 16, on one
+  SpMV's ``seg_fixup`` launches of the cop20k_A/seg, blocked_band and
+  powerlaw_tail programs and on the per-format API's api/split8 and
+  api/split64 fix-ups; and its ``CHUNKS_PER_BLOCK`` (``seg_psum``'s
+  warps, one chunk each, a block): 2, 4, 8, 16, on the same programs'
+  ``seg_psum`` launches.
 
 Each for one vector and an (N, 8) block.  Every variant is first checked
-against the kernel's plain version (rtol = atol = 1e-5 on |A|·|x|).
+against the kernel's plain version (rtol = atol = 1e-5 on |A|·|x|; the
+fix-up exactly, against its plain version on CPU copies).
 Prints the card's name and power limit, each build's register report,
 and one JSON line per (case, value, turn).  Exits non-zero without CUDA.
 """
@@ -124,8 +132,7 @@ def tile_cases(torch, dev, rng):
         sweep(torch, f"api/tile B={B}", "STEPS", fns, launch, check)
 
 
-def ell_cases(torch, dev, rng):
-    import chip_smoke as cs
+def ell_cases(torch, dev, rng, phases):
     from repro_torch.core import program as P
     from repro_torch.core.sparse_matrix import csr_to_ell
     from repro_torch.kernels import _lib, spmv_ell
@@ -171,10 +178,9 @@ def ell_cases(torch, dev, rng):
         sweep(torch, case, "G", fns, launch, check)
 
     cop = None
-    for label, build_matrix, plans in cs.phases():
+    for label, A, plans in phases:
         if label not in ("cop20k_A", "blocked_band"):
             continue
-        A = build_matrix()
         cop = A if label == "cop20k_A" else cop
         for plan_label, plan in plans:
             if plan_label == "cop20k_A/seg":
@@ -201,6 +207,115 @@ def ell_cases(torch, dev, rng):
                     one)])
 
 
+def seg_cases(torch, dev, rng, phases):
+    from repro_torch.core import program as P
+    from repro_torch.kernels import _lib, ops, spmv_seg, spmv_split
+
+    fixups = build("spmv_seg.cu", "LONG_ROW", (2, 4, 8, 16), "rt_seg_fixup")
+    scans = build("spmv_seg.cu", "CHUNKS_PER_BLOCK", (2, 4, 8, 16),
+                  "rt_seg_psum")
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def fixup_sweep(case, sets):
+        """sets: [(psum, pieces, piece_ptr, sids, out_ids, NS, out)]."""
+        def launch(fn):
+            for psum, pcs, ptr, sids, ids, ns, out in sets:
+                n, B, C, L = psum.shape
+                err = fn(psum.data_ptr(), pcs.data_ptr(), ptr.data_ptr(),
+                         sids.data_ptr(), ids.data_ptr(), n, C, L,
+                         pcs.shape[1], ptr.shape[1] - 1, ns, B,
+                         out.data_ptr(), stream())
+                if err:
+                    raise RuntimeError(f"launch failed: cudaError {err}")
+
+        def check(what):
+            for psum, pcs, ptr, sids, ids, ns, out in sets:
+                o = ids.long().cpu()
+                want = spmv_seg.seg_fixup_plain(
+                    *(t.cpu() for t in (psum, pcs, ptr, sids, ids)),
+                    torch.empty(out.shape))
+                if not torch.equal(out.cpu()[o], want[o]):
+                    raise AssertionError(f"{what}: differs from the plain "
+                                         f"version")
+        sweep(torch, case, "LONG_ROW", fixups, launch, check)
+
+    def scan_sweep(case, sets):
+        """sets: [(vals, cols, x, sids, out)]."""
+        def launch(fn):
+            for v, c, x, sids, out in sets:
+                err = fn(v.data_ptr(), c.data_ptr(), x.data_ptr(),
+                         _lib.x_stride(x), sids.data_ptr(), sids.numel(),
+                         v.shape[1], v.shape[2], x.shape[2], x.shape[1],
+                         out.data_ptr(), stream())
+                if err:
+                    raise RuntimeError(f"launch failed: cudaError {err}")
+
+        def check(what):
+            for v, c, x, sids, out in sets:
+                want = spmv_seg.seg_psum_plain(v, c, x, sids,
+                                               torch.empty_like(out))
+                scale = spmv_seg.seg_psum_plain(v.abs(), c, x.abs(), sids,
+                                                torch.empty_like(out))
+                close(torch, out, want, scale, what)
+        sweep(torch, case, "CHUNKS_PER_BLOCK", scans, launch, check)
+
+    for label, A, plans in phases:
+        for plan_label, plan in plans:
+            if plan_label == "cop20k_A/ell":
+                continue
+            prog = P.lower(A, plan)
+            run = P.make_program_spmv_fn(prog, device=dev)
+            T = run.operands
+            for B in (1, 8):
+                x = rng.standard_normal((A.ncols, B)).astype(np.float32)
+                bufs = run.buffers(torch.from_numpy(
+                    prog.x_to_device(x)).to(dev))
+                scan_sets, fixup_sets = [], []
+                for pre, xbuf in zip(("loc_", "rem_"), bufs):
+                    v, c, pcs, ptr = (T[pre + k] for k in (
+                        "seg_vals", "seg_cols", "seg_pieces", "piece_ptr"))
+                    for fam in ("seg", "split"):
+                        if fam not in run.families:
+                            continue
+                        sids = run.families[fam]
+                        n, R = sids.numel(), ptr.shape[1] - 1
+                        psum = spmv_seg.seg_psum(v, c, xbuf, sids)
+                        scan_sets.append((v, c, xbuf, sids,
+                                          torch.empty_like(psum)))
+                        seg = fam == "seg"
+                        ns = 1 if seg else int(run.num_splits[pre])
+                        ids = sids if seg else torch.arange(
+                            n, dtype=torch.int32, device=dev)
+                        shape = (v.shape[0], B, R) if seg else (n, B, ns, R)
+                        fixup_sets.append((psum, pcs, ptr, sids, ids, ns,
+                                           torch.empty(shape, device=dev)))
+                scan_sweep(f"{plan_label} B={B}", scan_sets)
+                fixup_sweep(f"{plan_label} B={B}", fixup_sets)
+        if label != "powerlaw_tail":
+            continue
+        one = torch.zeros(1, dtype=torch.int32, device=dev)
+        for ns in (8, 64):                      # the per-format API's split
+            spl = ops.split_from_csr(A, ns)
+            NS, Cs, L = spl.vals.shape
+            vals, cols = (torch.from_numpy(a).to(dev) for a in (spl.vals,
+                                                               spl.cols))
+            sp, ch, lo, hi, row = (ops._idx(dev, a) for a in (
+                spl.piece_split, spl.piece_chunk, spl.piece_lo,
+                spl.piece_hi, spl.piece_row))
+            pcs, ptr = ops._piece_table(dev, sp * Cs + ch, lo, hi, row, sp,
+                                        L, A.nrows)
+            for B in (1, 8):
+                xb = torch.from_numpy(rng.standard_normal(
+                    (B, A.ncols)).astype(np.float32)).to(dev)
+                psum = spmv_split.split_psum(vals, cols, xb).view(
+                    1, B, NS * Cs, L)
+                fixup_sweep(f"api/split{ns} B={B}", [(
+                    psum, pcs[None], ptr[None], one, one, NS,
+                    torch.empty((1, B, NS, A.nrows), device=dev))])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -209,10 +324,15 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
+    import chip_smoke as cs
+
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
+    phases = [(label, build_matrix(), plans)
+              for label, build_matrix, plans in cs.phases()]
     tile_cases(torch, dev, rng)
-    ell_cases(torch, dev, rng)
+    ell_cases(torch, dev, rng, phases)
+    seg_cases(torch, dev, rng, phases)
     return 0
 
 
