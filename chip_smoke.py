@@ -33,10 +33,11 @@ launch of one SpMV is then replayed against its plain PyTorch version
 on the same inputs (rtol = atol = 1e-5 on |A|·|x|-scaled values; the
 carry fix-up and the combine exactly) and timed with CUDA events beside
 its memory bound, the plain version and a PyTorch library call; the
-seg kernels' launches of the (N, 8) block are replayed, checked and
-timed the same way (``kernels_b8``, ``ms_b8`` in the summary).  Any
-failed check raises.  Exits non-zero, printing no result, without CUDA
-or without the port.
+launches of the (N, 8) block are replayed, checked and timed the same
+way (``kernels_b8``, ``ms_b8`` in the summary).  ``tile_contrib``'s
+output starts as NaN, so an entry it does not write fails its check.
+Any failed check raises.  Exits non-zero, printing no result, without
+CUDA or without the port.
 """
 from __future__ import annotations
 
@@ -77,8 +78,6 @@ SOURCE = {
     "split_psum": "src/repro_torch/csrc/spmv_split.cu",
     "tile_walk_spmv": "src/repro_torch/csrc/spmv_tile.cu",
 }
-#: Kernels also replayed, checked and timed on the (N, 8) block.
-BLOCK_KERNELS = ("seg_psum", "seg_fixup")
 #: The phase whose numbers stand for each kernel in the summary line.
 HEADLINE = {"ell_spmv": "cop20k_A/ell", "seg_psum": "cop20k_A/seg",
             "seg_fixup": "cop20k_A/seg", "split_combine": "powerlaw_tail",
@@ -221,8 +220,13 @@ def family_replays(torch, run, pre, x, fam, sids):
         n_tiles = real(tile_ptr)
         tile_elems = data[0, 0].numel()
         gathered = [xcol[s, :m].reshape(-1) for s, m in zip(shards, n_tiles)]
+        # NaN until the first call, the checked one, which must write every
+        # entry; the timed calls rewrite the same buffer and launch nothing
+        # else
+        poisoned = torch.full((S, B, R), float("nan"), device=x.device)
         rec("tile_contrib",
-            lambda: spmv_tile.tile_contrib(*a, x, sids, out=y_out()),
+            lambda: spmv_tile.tile_contrib(
+                *a, x, sids, rb_used=run.rb_used[pre], out=poisoned),
             lambda: spmv_tile.tile_contrib_plain(*a[:3], x, sids, y_out()),
             lambda: spmv_tile.tile_contrib_plain(torch.abs(a[0]), *a[1:3],
                                                  ax, sids, y_out()),
@@ -308,8 +312,9 @@ def family_csr(torch, prog, sids, device):
 
 
 def measure_records(torch, records) -> dict:
-    """Replay, check and time each launch record; returns the per-kernel
-    sums, bounds still to be set by :func:`set_bounds`."""
+    """Replay, check and time each launch record (the first call of a
+    record's kernel is the checked one); returns the per-kernel sums,
+    bounds still to be set by :func:`set_bounds`."""
     stats = {}
     for rec in records:
         k, p = rec["kernel"](), rec["plain"]()
@@ -325,7 +330,7 @@ def measure_records(torch, records) -> dict:
         else:
             scale = rec["scale"]()
             scale = (scale[rows] if rows is not None else scale).double().cpu()
-            bad = (k - p).abs() > KERNEL_TOL * (1.0 + scale)
+            bad = ~((k - p).abs() <= KERNEL_TOL * (1.0 + scale))   # NaN too
             check(not bool(bad.any()),
                   f"{what} disagrees with its plain version: max abs err "
                   f"{err} at rtol = atol = {KERNEL_TOL} on |A|.|x|")
@@ -472,11 +477,11 @@ def run_program(torch, label, A, plan, singles, block, device) -> dict:
     spmv_ms = cuda_ms(torch, lambda: fn(xs_single[0]), 10)
     block_ms = cuda_ms(torch, lambda: fn(xs_block), 5)
     spmv_graph_ms = graph_ms(torch, lambda: fn(xs_single[0]), 10)
+    block_graph_ms = graph_ms(torch, lambda: fn(xs_block), 10)
     kernels = measure_kernels(torch, prog, fn, xs_single[0],
                               prog_order(singles[0]), device)
-    kernels_b8 = set_bounds(measure_records(torch, [
-        r for r in replays(torch, fn, xs_block)
-        if r["name"] in BLOCK_KERNELS]))
+    kernels_b8 = set_bounds(measure_records(torch, replays(torch, fn,
+                                                           xs_block)))
     for name, s in kernels.items():
         s["launches"] = launches[name]
     for name, count in launches.items():
@@ -486,7 +491,7 @@ def run_program(torch, label, A, plan, singles, block, device) -> dict:
                 shard_kernels=list(prog.shard_kernels()),
                 lower_and_operands_s=lower_s, requests_s=requests_s,
                 spmv_ms=spmv_ms, block8_ms=block_ms,
-                spmv_graph_ms=spmv_graph_ms,
+                spmv_graph_ms=spmv_graph_ms, block8_graph_ms=block_graph_ms,
                 host_share=1.0 - spmv_graph_ms / spmv_ms, max_scaled_err=err,
                 pipeline_bitwise=pipeline_bitwise,
                 rerun_bitwise=rerun_bitwise,
@@ -741,8 +746,7 @@ def run_api_call(torch, label, A, call, singles, block, device) -> dict:
     with recorded_launches(ops) as calls:
         call(xblk)
     kernels_b8 = set_bounds(measure_records(torch, [
-        api_record(torch, label, *c) for c in calls
-        if c[0] in BLOCK_KERNELS]))
+        api_record(torch, label, *c) for c in calls]))
     A_card = csr_tensor(torch, A.row_ptr, A.col_index, A.values, A.shape,
                         device)
     for name in ("ell_spmv", "seg_psum", "split_psum", "tile_walk_spmv"):
@@ -824,9 +828,8 @@ def main(argv=None) -> int:
                             for r in results.values() if name in r["kernels"]),
             ms=s["ms"], plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=s["library_ms"],
-            phase=phase))
-        if name in BLOCK_KERNELS:
-            summary[-1]["ms_b8"] = results[phase]["kernels_b8"][name]["ms"]
+            phase=phase, ms_b8=results[phase]["kernels_b8"][name]["ms"],
+            bound_ms_b8=results[phase]["kernels_b8"][name]["bound_ms"]))
         if name == "seg_fixup":
             summary[-1]["note"] = ("the carry fix-up is jnp glue in the "
                                    "reference, not a pallas_call")

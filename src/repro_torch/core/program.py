@@ -618,6 +618,13 @@ def _exchange_index(program: SpmvProgram, ops: dict) -> np.ndarray:
     return ((g % S) * per + g // S)[None]
 
 
+def _tile_rows_used(tile_ptr: np.ndarray, sids: np.ndarray) -> int:
+    """The block rows any tile of the shards ``sids`` reaches: the last
+    block row with a tile, plus one (0 without tiles)."""
+    rows = np.flatnonzero((np.diff(tile_ptr[sids], axis=1) > 0).any(axis=0))
+    return int(rows[-1]) + 1 if rows.size else 0
+
+
 def make_program_spmv_fn(program: SpmvProgram, *, device="cuda",
                          pipeline: bool = True):
     """The device executor: returns ``run(x_shards) -> y_shards``.
@@ -632,7 +639,8 @@ def make_program_spmv_fn(program: SpmvProgram, *, device="cuda",
     ``pipeline=False`` after it; the outputs are bitwise-equal.
 
     ``run.operands`` (the device operand tensors), ``run.families``
-    (kernel -> int32 shard ids) and ``run.buffers(x_shards)`` (the local
+    (kernel -> int32 shard ids), ``run.rb_used`` (per pass, the block rows
+    the tile shards' tiles reach) and ``run.buffers(x_shards)`` (the local
     and remote x buffers) let a caller replay single kernels.
     """
     dev = resolve_device(device)
@@ -647,6 +655,9 @@ def make_program_spmv_fn(program: SpmvProgram, *, device="cuda",
                 if (ops["kid"] == i).any()}
     gidx = torch.from_numpy(_exchange_index(program, ops)).to(dev)
     row_remote = T["row_remote"][:, None, :]             # (S, 1, R)
+    tile_sids = np.flatnonzero(ops["kid"] == PROGRAM_KERNELS.index("tile"))
+    rb_used = {pre: _tile_rows_used(ops[pre + "tile_ptr"], tile_sids)
+               for pre in ("loc_", "rem_")}
 
     def kernel_pass(pre: str, xbuf, num_splits: int):
         y = torch.empty((S, xbuf.shape[1], R), dtype=torch.float32,
@@ -670,7 +681,7 @@ def make_program_spmv_fn(program: SpmvProgram, *, device="cuda",
             else:
                 kops.tile_stacked(T[pre + "tile_data"], T[pre + "tile_xcol"],
                                   T[pre + "tile_brow"], T[pre + "tile_ptr"],
-                                  xbuf, sids, out=y)
+                                  xbuf, sids, rb_used=rb_used[pre], out=y)
         return y
 
     def local_buffer(x_shards):
@@ -705,6 +716,7 @@ def make_program_spmv_fn(program: SpmvProgram, *, device="cuda",
     run.operands = T
     run.families = families
     run.num_splits = {"loc_": ops["NS_loc"], "rem_": ops["NS_rem"]}
+    run.rb_used = rb_used
     run.buffers = buffers
     return run
 

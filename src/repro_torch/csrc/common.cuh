@@ -10,8 +10,8 @@
 //     B * Lx) or 1 (one vector every shard reads, x_stride = 0);
 //   * column b of a batched call runs exactly the per-vector arithmetic,
 //     and no kernel uses atomics, so every result is bitwise-deterministic
-//     and batched columns equal per-vector calls.  split_psum,
-//     split_combine and tile_contrib take one column per grid.y; ell_spmv,
+//     and batched columns equal per-vector calls.  split_psum and
+//     split_combine take one column per grid.y; ell_spmv, tile_contrib,
 //     tile_walk_spmv, seg_psum and seg_fixup keep RHS_CHUNK columns' sums
 //     per thread (grid.y = chunk), so one load of a matrix entry or piece
 //     record feeds every column of a chunk.

@@ -34,9 +34,20 @@
 // tables and masked slots have no counterpart.  A block row without tiles
 // writes zeros.  No atomics, no scatter: deterministic.
 //
-// tile_contrib: one warp per (shard, block row); lanes stride a tile's BN
-// lanes, gather their x through xcol, and each tile's BM row products are
-// added in tile order (a fixed butterfly each).
+// tile_contrib: the executor's tile shards fill few block rows of an
+// output padded to the largest shard's rows (blocked_band: below 208 of
+// 7,463), so warps go only where tiles are: one warp per (shard, block
+// row below rb_used), and the rows from rb_used*BM on are zeroed by the
+// launch's fill blocks with 16-byte stores (rt_tile_spmv sizes both).
+// Lanes span a tile row: lane l reads cells 4l .. 4l+3 of the 8 rows
+// (eight 16-byte loads) and its 4 lane positions (one 16-byte load), keeps
+// per-row partials across the block row's tiles in tile order, and the 8
+// rows are summed once, at the end, with a fixed butterfly (store_rows).
+// The data and positions of the next PREFETCH tiles, and the next tile's
+// x, are loaded before a tile's FMAs, so a block row's dependent loads
+// overlap.  One load feeds RHS_CHUNK columns.
+// The null-mask walk (tile_walk_dense_kernel) is the same walk, x read at
+// the tile's block column instead of through xcol.
 //
 // tile_walk_spmv: one warp per (block row, group of 8 rows), so tall tiles
 // ((16, 128), (128, 128)) go as 8-row groups.  Lane (u, r) owns row r of
@@ -51,63 +62,216 @@
 // (mask, then cell) per step; the kernel loads the masks of STEPS steps,
 // then the first cell of each (data and x), before it adds any, so those
 // waits overlap.  More steps hold more registers, and with them fewer
-// resident warps (tools/tile_walk_steps.py times the choices).  The 4 tile slots of a row are added with a
-// fixed butterfly at the end.  Each column's additions run in the order of
-// the single-vector call, so batched columns equal it bitwise.  The cells
+// resident warps (tools/kernel_variants.py times the choices).  The 4 tile
+// slots of a row are added with a fixed butterfly at the end.  Each
+// column's additions run in the order of the single-vector call, so
+// batched columns equal it bitwise.  The cells
 // added are exactly the stored entries (CSR semantics: a non-finite x in
 // an unoccupied cell is never read; the TPU kernel multiplied it by 0).
 // A null mask (the Block-ELL shims' slab) takes tile_walk_dense_kernel:
 // every cell is read, with the lanes across the row so the loads coalesce.
+// Both tile_contrib and the dense walk add a lane's 4 cells of a row in
+// column order into its running partial, then sum the 32 lanes with the
+// butterfly of warp_sum, so each column equals the single-vector call.
 #include "common.cuh"
 
 namespace {
 
 constexpr int WARPS_PER_BLOCK = 8;
 constexpr int STEPS = 2;           // tile_walk_spmv: warp steps loaded at once
+// Lanes-across-row walks: tiles loaded ahead of the adds.  2 ties 1 on
+// blocked_band's tile_contrib (tools/kernel_variants.py contrib) and needs
+// 175 registers to 109, and spills with RHS_CHUNK columns (ptxas -v); 4
+// spills with one.
+constexpr int PREFETCH = 1;
+// 16-byte zero stores a thread of a tile_contrib fill block makes.
+constexpr int FILL_STORES = 4;
 
-template <int BM, int BN>
-__global__ void tile_spmv_kernel(const float* __restrict__ data,
-                                 const int* __restrict__ xcol,
-                                 const int* __restrict__ tile_ptr,
-                                 const float* __restrict__ x,
-                                 long long x_stride,
-                                 const int* __restrict__ sids, int n_sids,
-                                 int Tp, int Rb, int Lx, int B,
-                                 float* __restrict__ y) {
-  static_assert(BN % WARP == 0, "tile width must be a multiple of 32");
-  constexpr int PER_LANE = BN / WARP;
-  const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
-  const long long item = (long long)blockIdx.x * WARPS_PER_BLOCK + warp;
-  if (item >= (long long)n_sids * Rb) return;
-  const int k = (int)(item / Rb), mb = (int)(item % Rb), b = blockIdx.y;
-  const int sid = sids[k];
-  const float* xv = shard_x(x, x_stride, sid, b, Lx);
-  const int* ptr = tile_ptr + (long long)sid * (Rb + 1);
-  float acc[BM];
+// The lanes-across-row walk of tile_contrib and the null-mask walk: a warp
+// owns 8 rows of a run of (8k, 128) tiles, lane l cells 4l .. 4l+3 of each
+// row (one 16-byte load a row, the warp's loads of a row coalesced) and
+// the 4 x values they meet, a column each.  `part` holds a lane's running
+// sums, a row and a column each.
+template <int NB>
+__device__ __forceinline__ void add_tile(float (&part)[8][NB],
+                                         const float4 (&d)[8],
+                                         const float (&xv)[4][NB], int nb) {
 #pragma unroll
-  for (int i = 0; i < BM; ++i) acc[i] = 0.f;
-  for (int t = ptr[mb]; t < ptr[mb + 1]; ++t) {
-    const long long tile = (long long)sid * Tp + t;
-    const float* d = data + tile * BM * BN;
-    const int* xc = xcol + tile * BN;
-    float xl[PER_LANE];
+  for (int b = 0; b < NB; ++b) {
+    if (b >= nb) break;
 #pragma unroll
-    for (int j = 0; j < PER_LANE; ++j) xl[j] = xv[xc[lane + WARP * j]];
+    for (int i = 0; i < 8; ++i)
+      part[i][b] = fmaf(d[i].w, xv[3][b], fmaf(d[i].z, xv[2][b],
+                        fmaf(d[i].y, xv[1][b], fmaf(d[i].x, xv[0][b],
+                                                    part[i][b]))));
+  }
+}
+
+constexpr int ROW4 = 128 / 4;      // 16-byte words of a tile row
+
+// tile_contrib's (8, 128) tiles: x through the lane positions xcol.
+template <int NB>
+struct FlatTiles {
+  const float4* data;      // tile 0 of the shard, at the lane's cells
+  const int4* xcol;        // tile 0's lane positions, at the lane's 4
+  const float* x;          // column b0 of the shard's x buffer
+  long long Lx;
+  int nb;
+  __device__ __forceinline__ void load(int t, float4 (&d)[8],
+                                       int4& c) const {
 #pragma unroll
-    for (int i = 0; i < BM; ++i) {
-      float s = 0.f;
+    for (int i = 0; i < 8; ++i)
+      d[i] = __ldg(data + ((long long)t * 8 + i) * ROW4);
+    c = __ldg(xcol + (long long)t * ROW4);
+  }
+  __device__ __forceinline__ void gather(const int4& c,
+                                         float (&xv)[4][NB]) const {
 #pragma unroll
-      for (int j = 0; j < PER_LANE; ++j)
-        s = fmaf(d[i * BN + lane + WARP * j], xl[j], s);
-      acc[i] += warp_sum(s);
+    for (int b = 0; b < NB; ++b) {
+      if (b >= nb) break;
+      const float* xb = x + b * Lx;
+      xv[0][b] = xb[c.x], xv[1][b] = xb[c.y], xv[2][b] = xb[c.z],
+      xv[3][b] = xb[c.w];
     }
   }
-  if (lane == 0) {
-    float* out = y + ((long long)sid * B + b) * ((long long)Rb * BM) +
-                 (long long)mb * BM;
+};
+
+// The null-mask walk's tiles: x at the tile's block column, 0 past n.
+template <int NB>
+struct BlockTiles {
+  const float4* data;      // the warp's row group of tile 0, at the lane
+  const int* tile_cols;
+  long long tile_stride;   // float4s from one tile to the next
+  const float* x;          // column b0 of x
+  int n, nb, lane;
+  __device__ __forceinline__ void load(int t, float4 (&d)[8],
+                                       long long& c) const {
 #pragma unroll
-    for (int i = 0; i < BM; ++i) out[i] = acc[i];
+    for (int i = 0; i < 8; ++i) d[i] = __ldg(data + t * tile_stride + i * ROW4);
+    c = (long long)tile_cols[t] * 128 + 4 * lane;
   }
+  __device__ __forceinline__ void gather(long long c,
+                                         float (&xv)[4][NB]) const {
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      if (b >= nb) break;
+      const float* xb = x + (long long)b * n;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xv[j][b] = c + j < n ? xb[c + j] : 0.f;
+    }
+  }
+};
+
+// A block row's tiles lo .. hi-1 in order into `part`.  A ring of
+// PREFETCH tiles in registers (the loop unrolled by PREFETCH): before a
+// tile's FMAs, the loads of the tile PREFETCH places on are issued and
+// the next tile's x is gathered, so a tile's loads wait on no FMA and a
+// run keeps PREFETCH tiles in flight.
+template <int NB, class Tiles, class Cols>
+__device__ __forceinline__ void walk_tiles(const Tiles& tiles, int lo, int hi,
+                                           float (&part)[8][NB]) {
+  float4 ring[PREFETCH][8];
+  Cols cols[PREFETCH];
+#pragma unroll
+  for (int k = 0; k < PREFETCH; ++k)
+    if (lo + k < hi) tiles.load(lo + k, ring[k], cols[k]);
+  float xv[4][NB] = {};
+  if (lo < hi) tiles.gather(cols[0], xv);
+  for (int t = lo; t < hi; t += PREFETCH) {
+#pragma unroll
+    for (int k = 0; k < PREFETCH; ++k) {
+      if (t + k >= hi) break;
+      float4 d[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) d[i] = ring[k][i];
+      if (t + k + PREFETCH < hi)
+        tiles.load(t + k + PREFETCH, ring[k], cols[k]);
+      float xn[4][NB] = {};
+      if (t + k + 1 < hi) tiles.gather(cols[(k + 1) % PREFETCH], xn);
+      add_tile(part, d, xv, tiles.nb);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int b = 0; b < NB; ++b) xv[j][b] = xn[j][b];
+    }
+  }
+}
+
+// Sum each row's partials over the warp and store row i of column b from
+// lane 4i.  Each row's sum is warp_sum's butterfly (offsets 16, 8, 4, 2,
+// 1), bitwise; the first three steps halve the rows a lane carries, so a
+// column takes 9 shuffles, not 40.
+template <int NB>
+__device__ __forceinline__ void store_rows(const float (&part)[8][NB],
+                                           int lane, float* out,
+                                           long long col_stride, int nb) {
+  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    if (b >= nb) break;
+    float a[4], c[2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)          // rows 4*h16 + j
+      a[j] = (h16 ? part[j + 4][b] : part[j][b]) +
+             __shfl_xor_sync(FULL_MASK, h16 ? part[j][b] : part[j + 4][b], 16);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)          // rows 4*h16 + 2*h8 + j
+      c[j] = (h8 ? a[j + 2] : a[j]) +
+             __shfl_xor_sync(FULL_MASK, h8 ? a[j] : a[j + 2], 8);
+    float e = (h4 ? c[1] : c[0]) +       // row lane >> 2
+              __shfl_xor_sync(FULL_MASK, h4 ? c[0] : c[1], 4);
+    e += __shfl_xor_sync(FULL_MASK, e, 2);
+    e += __shfl_xor_sync(FULL_MASK, e, 1);
+    if ((lane & 3) == 0) out[b * col_stride + (lane >> 2)] = e;
+  }
+}
+
+// Blocks below tile_blocks: one warp per (k, mb < rb_used), k over sids.
+// The others fill rows rb_used*BM .. R of every listed shard and column
+// with zeros, a float4 a thread per step.
+template <int NB>
+__global__ void tile_contrib_kernel(const float* __restrict__ data,
+                                    const int* __restrict__ xcol,
+                                    const int* __restrict__ tile_ptr,
+                                    const float* __restrict__ x,
+                                    long long x_stride,
+                                    const int* __restrict__ sids, int n_sids,
+                                    int Tp, int Rb, int rb_used, int Lx,
+                                    int B, int tile_blocks,
+                                    float* __restrict__ y) {
+  constexpr int BM = 8, BN = 128;
+  const long long R = (long long)Rb * BM;
+  const int b0 = blockIdx.y * NB, nb = min(NB, B - b0);
+  if ((int)blockIdx.x >= tile_blocks) {
+    const long long per = (R - (long long)rb_used * BM) / 4;
+    const long long total = (long long)n_sids * nb * per;
+    const long long step = (long long)(gridDim.x - tile_blocks) * blockDim.x;
+    for (long long q = (long long)(blockIdx.x - tile_blocks) * blockDim.x +
+                       threadIdx.x;
+         q < total; q += step) {
+      const long long kb = q / per;
+      const int k = (int)(kb / nb), b = (int)(kb % nb);
+      float4* row = reinterpret_cast<float4*>(
+          y + ((long long)sids[k] * B + b0 + b) * R + (long long)rb_used * BM);
+      row[q - kb * per] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
+  }
+  const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+  const long long item = (long long)blockIdx.x * WARPS_PER_BLOCK + warp;
+  if (item >= (long long)n_sids * rb_used) return;
+  const int k = (int)(item / rb_used), mb = (int)(item % rb_used);
+  const int sid = sids[k];
+  const int* ptr = tile_ptr + (long long)sid * (Rb + 1);
+  const long long tile0 = (long long)sid * Tp;
+  const FlatTiles<NB> tiles{
+      reinterpret_cast<const float4*>(data + tile0 * BM * BN) + lane,
+      reinterpret_cast<const int4*>(xcol + tile0 * BN) + lane,
+      shard_x(x, x_stride, sid, b0, Lx), Lx, nb};
+  float part[BM][NB] = {};
+  walk_tiles<NB, FlatTiles<NB>, int4>(tiles, ptr[mb], ptr[mb + 1], part);
+  store_rows(part, lane,
+             y + ((long long)sid * B + b0) * R + (long long)mb * BM, R, nb);
 }
 
 // Bit j of the result is the occupancy of column 32q + j of a tile row,
@@ -241,10 +405,8 @@ __global__ void tile_walk_kernel(const float* __restrict__ data,
 }
 
 // The null-mask walk (the Block-ELL shims' zero-padded slab): every cell
-// is read, so the lanes span a tile row instead (lane l: cells 4l .. 4l+3
-// of each of the group's 8 rows, one 16-byte load a row, the warp's loads
-// of a row coalesced), keep per-row partials across the tiles in tile
-// order, and reduce each row once with a fixed butterfly.
+// is read, lanes across the row (walk_tiles), one warp per (block row,
+// group of 8 rows).
 template <int NB>
 __global__ void tile_walk_dense_kernel(const float* __restrict__ data,
                                        const int* __restrict__ tile_cols,
@@ -259,46 +421,15 @@ __global__ void tile_walk_dense_kernel(const float* __restrict__ data,
   if (item >= (long long)Mb * groups) return;
   const int mb = (int)(item / groups), g = (int)(item % groups);
   const int b0 = blockIdx.y * NB, nb = min(NB, B - b0);
-  const float* xv = x + (long long)b0 * n;
-  float part[RG][NB];
-#pragma unroll
-  for (int i = 0; i < RG; ++i)
-#pragma unroll
-    for (int b = 0; b < NB; ++b) part[i][b] = 0.f;
-  for (int t = tile_ptr[mb]; t < tile_ptr[mb + 1]; ++t) {
-    const float4* d = reinterpret_cast<const float4*>(
-                          data + ((long long)t * bm + g * RG) * BN) + lane;
-    const long long c = (long long)tile_cols[t] * BN + 4 * lane;
-    float4 dv[RG];
-#pragma unroll
-    for (int i = 0; i < RG; ++i) dv[i] = __ldg(d + i * (BN / 4));
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      if (b >= nb) break;
-      const float* xb = xv + (long long)b * n;
-      const float x0 = c < n ? xb[c] : 0.f, x1 = c + 1 < n ? xb[c + 1] : 0.f,
-                  x2 = c + 2 < n ? xb[c + 2] : 0.f,
-                  x3 = c + 3 < n ? xb[c + 3] : 0.f;
-#pragma unroll
-      for (int i = 0; i < RG; ++i)
-        part[i][b] = fmaf(dv[i].w, x3, fmaf(dv[i].z, x2, fmaf(dv[i].y, x1,
-                          fmaf(dv[i].x, x0, part[i][b]))));
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < RG; ++i)
-#pragma unroll
-    for (int b = 0; b < NB; ++b) part[i][b] = warp_sum(part[i][b]);
-  if (lane == 0) {
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      if (b >= nb) break;
-      float* out = y + (long long)(b0 + b) * Mb * bm + (long long)mb * bm +
-                   g * RG;
-#pragma unroll
-      for (int i = 0; i < RG; ++i) out[i] = part[i][b];
-    }
-  }
+  const BlockTiles<NB> tiles{
+      reinterpret_cast<const float4*>(data + (long long)g * RG * BN) + lane,
+      tile_cols, (long long)bm * BN / 4, x + (long long)b0 * n, n, nb, lane};
+  float part[RG][NB] = {};
+  walk_tiles<NB, BlockTiles<NB>, long long>(tiles, tile_ptr[mb],
+                                            tile_ptr[mb + 1], part);
+  store_rows(part, lane,
+             y + (long long)b0 * Mb * bm + (long long)mb * bm + g * RG,
+             (long long)Mb * bm, nb);
 }
 
 }  // namespace
@@ -333,18 +464,38 @@ RT_API int rt_tile_walk_spmv(const float* data, const unsigned char* mask,
   return (int)cudaGetLastError();
 }
 
+// tile_contrib's grid along x: ceil(n_sids * rb_used / WARPS_PER_BLOCK)
+// tile blocks, then enough fill blocks to zero rows rb_used*BM .. R of
+// every listed shard and column of a chunk, FILL_STORES 16-byte stores a
+// thread.
 RT_API int rt_tile_spmv(const float* data, const int* xcol,
                         const int* tile_ptr, const float* x,
                         long long x_stride, const int* sids, int n_sids,
-                        int Tp, int Rb, int BM, int BN, int Lx, int B,
-                        float* y, void* stream) {
-  if (BM != 8 || BN != 128) return (int)cudaErrorInvalidValue;
-  const long long items = (long long)n_sids * Rb;
-  if (items == 0 || B == 0) return 0;
-  dim3 grid((unsigned)((items + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK),
-            (unsigned)B);
-  tile_spmv_kernel<8, 128><<<grid, WARPS_PER_BLOCK * WARP, 0,
-                             (cudaStream_t)stream>>>(
-      data, xcol, tile_ptr, x, x_stride, sids, n_sids, Tp, Rb, Lx, B, y);
+                        int Tp, int Rb, int rb_used, int BM, int BN, int Lx,
+                        int B, float* y, void* stream) {
+  if (BM != 8 || BN != 128 || rb_used < 0 || rb_used > Rb)
+    return (int)cudaErrorInvalidValue;
+  if (n_sids == 0 || B == 0) return 0;
+  const long long items = (long long)n_sids * rb_used;
+  const long long tile_blocks =
+      (items + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
+  const int nb = B < RHS_CHUNK ? B : RHS_CHUNK;   // columns of chunk 0
+  const long long fill = (long long)n_sids * nb * (Rb - rb_used) * BM / 4;
+  const long long per_block =
+      (long long)WARPS_PER_BLOCK * WARP * FILL_STORES;
+  const long long fill_blocks = (fill + per_block - 1) / per_block;
+  if (tile_blocks + fill_blocks == 0) return 0;
+  const dim3 grid((unsigned)(tile_blocks + fill_blocks),
+                  (unsigned)((B + RHS_CHUNK - 1) / RHS_CHUNK));
+  const int threads = WARPS_PER_BLOCK * WARP;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (B == 1)
+    tile_contrib_kernel<1><<<grid, threads, 0, s>>>(
+        data, xcol, tile_ptr, x, x_stride, sids, n_sids, Tp, Rb, rb_used, Lx,
+        B, (int)tile_blocks, y);
+  else
+    tile_contrib_kernel<RHS_CHUNK><<<grid, threads, 0, s>>>(
+        data, xcol, tile_ptr, x, x_stride, sids, n_sids, Tp, Rb, rb_used, Lx,
+        B, (int)tile_blocks, y);
   return (int)cudaGetLastError();
 }

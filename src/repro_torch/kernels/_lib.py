@@ -46,7 +46,7 @@ _SIGNATURES = {
     "rt_split_psum": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
     "rt_split_combine": (_P, _P, _I, _I, _I, _I, _P, _P),
     "rt_tile_spmv": (_P, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _I,
-                     _P, _P),
+                     _I, _P, _P),
     "rt_tile_walk_spmv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
 }
 

@@ -454,7 +454,9 @@ def split_stacked(vals, cols, pieces, piece_ptr, x, sids, *,
                                 out)
 
 
-def tile_stacked(data, xcol, brow, tile_ptr, x, sids, *, out=None):
+def tile_stacked(data, xcol, brow, tile_ptr, x, sids, *, rb_used=None,
+                 out=None):
     """Tile SpMV: lane gather, per-tile products and block-row sums in one
-    kernel."""
-    return tile_contrib(data, xcol, brow, tile_ptr, x, sids, out=out)
+    kernel, walking the block rows below ``rb_used`` (None: all)."""
+    return tile_contrib(data, xcol, brow, tile_ptr, x, sids, rb_used=rb_used,
+                        out=out)

@@ -11,7 +11,11 @@
 
   Tiles are sorted by block row (``brow``); padding tiles carry
   ``brow = Rb`` and drop.  ``tile_ptr`` (S, Rb+1) holds each block row's
-  run of tiles.
+  run of tiles.  ``rb_used`` bounds the block rows the kernel walks: tiles
+  at block rows from it on drop as padding tiles do, and their rows are
+  zeros (the executor passes the last block row holding any of the
+  shards' tiles, plus one; the launch then has warps only there, and
+  zeroes the rows past them itself).
 * :func:`tile_walk_spmv` — counterpart of
   ``repro.kernels.spmv_tile.tile_walk_spmv`` on one
   :class:`~repro_torch.core.sparse_matrix.TileMatrix`, x addressed by
@@ -38,16 +42,18 @@ __all__ = ["tile_contrib", "tile_contrib_plain", "tile_walk_spmv",
            "tile_walk_spmv_plain"]
 
 
-def tile_contrib_plain(data, xcol, brow, x, sids, out):
+def tile_contrib_plain(data, xcol, brow, x, sids, out, rb_used=None):
     """Gather x lanes, per-tile row products, then the block-row sums in
-    tile order with the padding tiles masked out."""
+    tile order with the tiles at block rows from ``rb_used`` (padding
+    tiles included) masked out."""
     S, Tp, bm, bn = data.shape
     Rb = out.shape[2] // bm
+    rb = Rb if rb_used is None else rb_used
     for sid in sids.tolist():
         xs = x[sid if x.shape[0] > 1 else 0]                    # (B, Lx)
         xg = xs[:, xcol[sid].long()]                            # (B, Tp, bn)
         contrib = (data[sid][None] * xg[:, :, None, :]).sum(-1)  # (B,Tp,bm)
-        keep = brow[sid] < Rb
+        keep = brow[sid] < rb
         acc = torch.zeros((xs.shape[0], Rb, bm), dtype=data.dtype,
                           device=data.device)
         acc.index_add_(1, brow[sid][keep].long(), contrib[:, keep])
@@ -55,18 +61,23 @@ def tile_contrib_plain(data, xcol, brow, x, sids, out):
     return out
 
 
-def tile_contrib(data, xcol, brow, tile_ptr, x, sids, *, out=None):
+def tile_contrib(data, xcol, brow, tile_ptr, x, sids, *, rb_used=None,
+                 out=None):
     """Tile SpMV over the shards ``sids``; returns ``out`` (S, B, R) with
-    R = Rb * bm.  A CUDA tensor launches the kernel; a CPU tensor runs
+    R = Rb * bm.  ``rb_used`` (None: Rb) bounds the block rows walked.  A
+    CUDA tensor launches the kernel; a CPU tensor runs
     :func:`tile_contrib_plain`."""
     S, Tp, bm, bn = data.shape
     B, Lx = x.shape[1], x.shape[2]
     Rb = tile_ptr.shape[1] - 1
+    rb = Rb if rb_used is None else int(rb_used)
+    if not 0 <= rb <= Rb:
+        raise ValueError(f"tile_contrib: rb_used {rb} outside 0 .. {Rb}")
     if out is None:
         out = torch.empty((S, B, Rb * bm), dtype=torch.float32,
                           device=data.device)
     if data.device.type == "cpu":
-        return tile_contrib_plain(data, xcol, brow, x, sids, out)
+        return tile_contrib_plain(data, xcol, brow, x, sids, out, rb)
     f32, i32 = torch.float32, torch.int32
     _lib.check(data.device, data=(data, f32, 4), xcol=(xcol, i32, 3),
                tile_ptr=(tile_ptr, i32, 2), x=(x, f32, 3),
@@ -77,12 +88,15 @@ def tile_contrib(data, xcol, brow, tile_ptr, x, sids, *, out=None):
     if xcol.shape != (S, Tp, bn) or tile_ptr.shape[0] != S \
             or out.shape != (S, B, Rb * bm) or x.shape[0] not in (1, S):
         raise ValueError("tile_contrib: operand shapes disagree")
+    if any(t.data_ptr() % 16 for t in (data, xcol, out)):
+        raise ValueError("tile_contrib: data, xcol and out must be 16-byte "
+                         "aligned (the kernel moves 4 elements a load)")
     if sids.numel() == 0 or B == 0:
         return out
     _lib.call("tile_contrib", "rt_tile_spmv", data.data_ptr(),
               xcol.data_ptr(), tile_ptr.data_ptr(), x.data_ptr(),
-              _lib.x_stride(x), sids.data_ptr(), sids.numel(), Tp, Rb, bm, bn,
-              Lx, B, out.data_ptr())
+              _lib.x_stride(x), sids.data_ptr(), sids.numel(), Tp, Rb, rb,
+              bm, bn, Lx, B, out.data_ptr())
     return out
 
 

@@ -134,6 +134,91 @@ def test_tile_walk_and_tile_spmv_on_card(device, bm):
                                                   device=device))
 
 
+def contrib_case(B, *, shared_x=False, seed=0, Rb=40, Lx=300):
+    """``tile_contrib``'s flat operands on the CPU, as the executor stacks
+    them: data (4, Tp, 8, 128), xcol, brow, tile_ptr, x ((1 or 4), B, Lx),
+    the listed shards ``sids = [2, 1, 0]``, ``rb_used`` and Rb.
+
+    Shard 0 has a block row of 64 tiles, empty block rows among its others
+    and tiles up to block row 29; shard 1 has no tiles; shard 2 reaches
+    block row 33, so rb_used = 34 < Rb.  Shard 3, not listed, has a tile at
+    block row 38.  About a fifth of the cells are zeros, a lane whose 8
+    cells are all zero reads x position 0 (as the executor's remap gives
+    it), and the padding tiles past each shard's real ones (block row Rb)
+    hold NaN, so a read of one would show."""
+    rng = np.random.default_rng(seed)
+    counts = np.zeros((4, Rb), int)
+    counts[0, :30] = rng.choice([0, 0, 1, 2, 3, 5], 30)
+    counts[0, 3], counts[0, 29] = 64, 2
+    counts[2, [0, 7, 33]] = (1, 4, 2)
+    counts[3, 38] = 1
+    Tp = counts.sum(1).max() + 5
+    data = np.full((4, Tp, 8, 128), np.nan, np.float32)
+    xcol = np.zeros((4, Tp, 128), np.int32)
+    brow = np.full((4, Tp), Rb, np.int32)
+    for s in range(4):
+        n = counts[s].sum()
+        d = rng.standard_normal((n, 8, 128)).astype(np.float32)
+        d[rng.random(d.shape) < 0.2] = 0.0
+        live = (d != 0).any(axis=1)
+        data[s, :n] = d
+        xcol[s, :n] = np.where(live, rng.integers(0, Lx, (n, 128)), 0)
+        brow[s, :n] = np.repeat(np.arange(Rb), counts[s])
+    tile_ptr = np.stack([np.searchsorted(b, np.arange(Rb + 1)) for b in brow])
+    x = rng.standard_normal((1 if shared_x else 4, B, Lx)).astype(np.float32)
+    sids = torch.tensor([2, 1, 0], dtype=torch.int32)
+    return ([torch.from_numpy(a) for a in (data, xcol, brow,
+                                           tile_ptr.astype(np.int32), x)]
+            + [sids, 34, Rb])
+
+
+@pytest.mark.parametrize("shared_x", [False, True])
+@pytest.mark.parametrize("B", [1, 3, 8, 11])
+def test_tile_contrib_on_card(device, B, shared_x):
+    # padding tiles (NaN, never read), a shard with no tiles, empty block
+    # rows below rb_used, a block row of 64 tiles; out starts as NaN, so an
+    # entry the kernel does not write shows, and shard 3 is not listed
+    data, xcol, brow, tile_ptr, x, sids, rb_used, Rb = contrib_case(
+        B, shared_x=shared_x)
+    args = [t.to(device) for t in (data, xcol, brow, tile_ptr)]
+    xd, sd = x.to(device), sids.to(device)
+
+    rows = sids.long()
+
+    def contrib(v, rb=rb_used):
+        out = torch.full((4, v.shape[1], Rb * 8), float("nan"), device=device)
+        return spmv_tile.tile_contrib(*args, v, sd, rb_used=rb, out=out)
+    _lib.reset_launch_counts()
+    got = contrib(xd).cpu()
+    assert _lib.launch_counts["tile_contrib"] == 1
+    want = spmv_tile.tile_contrib_plain(data, xcol, brow, x, sids,
+                                        torch.zeros(got.shape))
+    scale = spmv_tile.tile_contrib_plain(data.abs(), xcol, brow, x.abs(),
+                                         sids, torch.zeros(got.shape))
+    assert bool((got[rows] - want[rows]).abs().le(
+        1e-5 * (1.0 + scale[rows])).all())
+    assert not got[rows, :, rb_used * 8:].any()
+    assert got[3].isnan().all()
+    _columns_match_single(lambda v: contrib(v)[rows], xd, 1)
+    assert torch.equal(contrib(xd).cpu()[rows], got[rows])
+    # the same sums when every block row is walked (rb_used = Rb)
+    assert torch.equal(contrib(xd, None).cpu()[rows], got[rows])
+
+
+def test_tile_contrib_rejects_unaligned_operands(device):
+    data, xcol, brow, tile_ptr, x, sids, rb_used, Rb = contrib_case(1)
+    args = [t.to(device) for t in (data, xcol, brow, tile_ptr, x, sids)]
+    flat = torch.empty(args[0].numel() + 1, device=device)
+    shifted = flat[1:].view(args[0].shape)       # 4 bytes off 16
+    shifted.copy_(args[0])
+    with pytest.raises(ValueError, match="16-byte"):
+        spmv_tile.tile_contrib(shifted, *args[1:], rb_used=rb_used)
+    out = torch.empty(args[0].shape[0] * (Rb * 8) + 1, device=device)
+    with pytest.raises(ValueError, match="16-byte"):
+        spmv_tile.tile_contrib(*args, rb_used=rb_used,
+                               out=out[1:].view(4, 1, Rb * 8))
+
+
 def _columns_match_single(kernel, xb, col_dim):
     """Every column of the batched call equals the single-vector call on
     it, bitwise; xb is batch-major with the batch at ``col_dim``."""

@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
 """Time kernels at each value of their tuning constant on one GPU.
 
-    python3 tools/kernel_variants.py
+    python3 tools/kernel_variants.py                 # every sweep
+    python3 tools/kernel_variants.py contrib tile    # only these sweeps
 
 Compiles a kernel source once for each value of one ``constexpr`` into its
 own library under ``build/kernel_variants/``, then times each library's
 launches with CUDA events (replayed as CUDA graphs), two turns in a row:
 
-* ``spmv_tile.cu``'s ``STEPS`` (warp steps whose masks and first cells
-  the tile walk loads at once): 1, 2, 4, 8, on the api/tile case of
+* ``contrib``: ``spmv_tile.cu``'s ``PREFETCH`` (tiles whose data and lane
+  positions ``tile_contrib`` loads ahead of a tile's FMAs): 1, 2, 4, on
+  the blocked_band program of ``chip_smoke.py``: its two ``tile_contrib``
+  launches (local and remote pass) in one graph;
+* ``tile``: ``spmv_tile.cu``'s ``STEPS`` (warp steps whose masks and first
+  cells the tile walk loads at once): 1, 2, 4, 8, on the api/tile case of
   ``chip_smoke.py`` (``tile_from_csr(blocked_band(131072, 32·131072))``);
-* ``spmv_ell.cu``'s ``G`` (lanes a row): 4, 8, 16, 32, on one SpMV's
-  ``ell_spmv`` launches (both passes, each family) of the cop20k_A/ell and
-  blocked_band programs of ``chip_smoke.py``, and on the per-format API's
-  cop20k_A ELL slab (no length table);
-* ``spmv_seg.cu``'s ``LONG_ROW`` (pieces a lane of the carry fix-up walks
-  alone before the block's warps take the row): 2, 4, 8, 16, on one
-  SpMV's ``seg_fixup`` launches of the cop20k_A/seg, blocked_band and
-  powerlaw_tail programs and on the per-format API's api/split8 and
+* ``ell``: ``spmv_ell.cu``'s ``G`` (lanes a row): 4, 8, 16, 32, on one
+  SpMV's ``ell_spmv`` launches (both passes, each family) of the
+  cop20k_A/ell and blocked_band programs of ``chip_smoke.py``, and on the
+  per-format API's cop20k_A ELL slab (no length table);
+* ``seg``: ``spmv_seg.cu``'s ``LONG_ROW`` (pieces a lane of the carry
+  fix-up walks alone before the block's warps take the row): 2, 4, 8, 16,
+  on one SpMV's ``seg_fixup`` launches of the cop20k_A/seg, blocked_band
+  and powerlaw_tail programs and on the per-format API's api/split8 and
   api/split64 fix-ups; and its ``CHUNKS_PER_BLOCK`` (``seg_psum``'s
   warps, one chunk each, a block): 2, 4, 8, 16, on the same programs'
   ``seg_psum`` launches.
@@ -98,6 +103,51 @@ def sweep(torch, case, const, fns, launch, check):
 def close(torch, got, want, scale, what):
     if not bool(((got - want).abs() <= TOL * (1.0 + scale)).all()):
         raise AssertionError(f"{what}: disagrees with the plain version")
+
+
+def contrib_cases(torch, dev, rng, phases):
+    from repro_torch.core import program as P
+    from repro_torch.kernels import _lib, spmv_tile
+
+    fns = build("spmv_tile.cu", "PREFETCH", (1, 2, 4), "rt_tile_spmv")
+    (A, plans), = [(A, plans) for label, A, plans in phases
+                   if label == "blocked_band"]
+    for plan_label, plan in plans:
+        prog = P.lower(A, plan)
+        run = P.make_program_spmv_fn(prog, device=dev)
+        T, sids = run.operands, run.families["tile"]
+        for B in (1, 8):
+            x = rng.standard_normal((A.ncols, B)).astype(np.float32)
+            bufs = run.buffers(torch.from_numpy(prog.x_to_device(x)).to(dev))
+            sets = [([T[pre + k] for k in ("tile_data", "tile_xcol",
+                                           "tile_brow", "tile_ptr")],
+                     xbuf, run.rb_used[pre],
+                     torch.empty((len(run.operands["kid"]), B, run.rows_out),
+                                 device=dev))
+                    for pre, xbuf in zip(("loc_", "rem_"), bufs)]
+
+            def launch(fn, sets=sets):
+                for (data, xcol, _, ptr), xbuf, rb, out in sets:
+                    err = fn(data.data_ptr(), xcol.data_ptr(), ptr.data_ptr(),
+                             xbuf.data_ptr(), _lib.x_stride(xbuf),
+                             sids.data_ptr(), sids.numel(), data.shape[1],
+                             ptr.shape[1] - 1, rb, 8, 128, xbuf.shape[2],
+                             xbuf.shape[1], out.data_ptr(),
+                             torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"launch failed: cudaError {err}")
+
+            def check(what, sets=sets):
+                rows = sids.long()
+                for a, xbuf, _, out in sets:
+                    want = spmv_tile.tile_contrib_plain(
+                        *a[:3], xbuf, sids, torch.empty_like(out))
+                    scale = spmv_tile.tile_contrib_plain(
+                        a[0].abs(), *a[1:3], xbuf.abs(), sids,
+                        torch.empty_like(out))
+                    close(torch, out[rows], want[rows], scale[rows], what)
+            sweep(torch, f"{plan_label} B={B}", "PREFETCH", fns, launch,
+                  check)
 
 
 def tile_cases(torch, dev, rng):
@@ -316,7 +366,14 @@ def seg_cases(torch, dev, rng, phases):
                     torch.empty((1, B, NS, A.nrows), device=dev))])
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    sweeps = {"contrib": contrib_cases, "tile": tile_cases,
+              "ell": ell_cases, "seg": seg_cases}
+    names = (sys.argv[1:] if argv is None else argv) or list(sweeps)
+    if set(names) - set(sweeps):
+        print(f"kernel_variants: unknown sweep in {names}; choose from "
+              f"{list(sweeps)}", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("kernel_variants: CUDA is not available", file=sys.stderr)
@@ -330,9 +387,11 @@ def main() -> int:
     rng = np.random.default_rng(0)
     phases = [(label, build_matrix(), plans)
               for label, build_matrix, plans in cs.phases()]
-    tile_cases(torch, dev, rng)
-    ell_cases(torch, dev, rng, phases)
-    seg_cases(torch, dev, rng, phases)
+    for name in names:
+        if name == "tile":
+            tile_cases(torch, dev, rng)
+        else:
+            sweeps[name](torch, dev, rng, phases)
     return 0
 
 
