@@ -16,9 +16,13 @@ through the per-format kernel API (``repro_torch.kernels``):
 * ``powerlaw_tail``: 131,072 rows under ``split`` (NS from
   ``split_meta``);
 * ``kernel_api``: ``split_spmv`` on ``split_from_csr`` of the
-  powerlaw_tail matrix with NS = 8 and 64, ``tile_spmv`` on
-  ``tile_from_csr`` of the blocked_band matrix, ``seg_spmv``,
-  ``hyb_spmv`` and ``ell_spmv`` on the full cop20k_A formats, and the
+  powerlaw_tail matrix with NS = 8 and 64 (``api/split8``,
+  ``api/split64``) and with NS = 64 at chunk 4096
+  (``api/split64_4096``), ``tile_spmv`` on ``tile_from_csr`` of the
+  blocked_band matrix with (8, 128) tiles (``api/tile``) and (16, 64)
+  tiles (``api/tile16x64``, the general walk), ``seg_spmv`` on cop20k_A
+  at chunk 512 and 2048 (``api/seg``, ``api/seg2048``), ``hyb_spmv`` and
+  ``ell_spmv`` on the full cop20k_A formats, and the
   deprecated ``bell_spmv`` / ``bell_spmm`` on ``csr_to_bcsr`` of a
   smaller ``blocked_band(16384, 32·16384)`` with (8, 128) blocks: the
   padded Block-ELL slab grows with the widest block row (59 blocks here,
@@ -673,26 +677,30 @@ def api_cases(torch, matrices, device):
                 for a in arrays]
 
     tail = matrices["powerlaw_tail"]
-    for ns in (8, 64):
-        spl = ops.split_from_csr(tail, ns)
+    for label, ns, chunk in (("api/split8", 8, ops.SEG_CHUNK),
+                             ("api/split64", 64, ops.SEG_CHUNK),
+                             ("api/split64_4096", 64, 4096)):
+        spl = ops.split_from_csr(tail, ns, chunk=chunk)
         arrays = card(spl.vals, spl.cols, spl.rows, spl.piece_split,
                       spl.piece_chunk, spl.piece_lo, spl.piece_hi,
                       spl.piece_row)
-        yield f"api/split{ns}", tail, lambda x, a=arrays: ops.split_spmv(
+        yield label, tail, lambda x, a=arrays: ops.split_spmv(
             a, x, num_rows=tail.nrows, device=device)
     band = matrices["blocked_band"]
-    t = ops.tile_from_csr(band)
-    data, tcols, tptr, tmask = card(t.data, t.tile_cols, t.tile_ptr, t.mask)
-    t = dataclasses.replace(t, data=data, tile_cols=tcols, tile_ptr=tptr,
-                            mask=tmask)
-    yield "api/tile", band, lambda x: ops.tile_spmv(t, x, device=device)
+    for label, bm, bn in (("api/tile", 8, 128), ("api/tile16x64", 16, 64)):
+        t = ops.tile_from_csr(band, bm=bm, bn=bn)
+        data, tcols, tptr, tmask = card(t.data, t.tile_cols, t.tile_ptr,
+                                        t.mask)
+        t = dataclasses.replace(t, data=data, tile_cols=tcols, tile_ptr=tptr,
+                                mask=tmask)
+        yield label, band, lambda x, t=t: ops.tile_spmv(t, x, device=device)
     cop = matrices["cop20k_A"]
-    seg = ops.seg_from_csr(cop)
-    arrays = card(seg.vals, seg.cols, seg.rows, seg.piece_chunk, seg.piece_lo,
-                  seg.piece_hi, seg.piece_row)
-    yield "api/seg", cop, lambda x: ops.seg_spmv(arrays, x,
-                                                 num_rows=cop.nrows,
-                                                 device=device)
+    for label, chunk in (("api/seg", ops.SEG_CHUNK), ("api/seg2048", 2048)):
+        seg = ops.seg_from_csr(cop, chunk=chunk)
+        arrays = card(seg.vals, seg.cols, seg.rows, seg.piece_chunk,
+                      seg.piece_lo, seg.piece_hi, seg.piece_row)
+        yield label, cop, lambda x, a=arrays: ops.seg_spmv(
+            a, x, num_rows=cop.nrows, device=device)
     hyb = card(*(getattr(ops.hyb_from_csr(cop), f) for f in (
         "data", "cols", "overflow_rows", "overflow_cols", "overflow_vals")))
     yield "api/hyb", cop, lambda x: ops.hyb_spmv(*hyb, x, device=device)

@@ -10,11 +10,11 @@
 //     B * Lx) or 1 (one vector every shard reads, x_stride = 0);
 //   * column b of a batched call runs exactly the per-vector arithmetic,
 //     and no kernel uses atomics, so every result is bitwise-deterministic
-//     and batched columns equal per-vector calls.  split_psum and
-//     split_combine take one column per grid.y; ell_spmv, tile_contrib,
-//     tile_walk_spmv, seg_psum and seg_fixup keep RHS_CHUNK columns' sums
-//     per thread (grid.y = chunk), so one load of a matrix entry or piece
-//     record feeds every column of a chunk.
+//     and batched columns equal per-vector calls.  split_combine takes one
+//     column per grid.y; ell_spmv, tile_contrib, tile_walk_spmv, seg_psum
+//     (and split_psum, which is seg_psum's scan) and seg_fixup keep
+//     RHS_CHUNK columns' sums per thread (grid.y = chunk), so one load of
+//     a matrix entry or piece record feeds every column of a chunk.
 // Every launcher returns cudaGetLastError() so a refused launch is seen.
 #pragma once
 #include <cuda_runtime.h>
@@ -48,30 +48,11 @@ __device__ __forceinline__ const float* shard_x(const float* x,
   return x + (long long)sid * x_stride + (long long)b * Lx;
 }
 
-// Inclusive prefix sum of one value per thread over a block of L threads
-// (L a multiple of 32, at most 1024): a shuffle scan inside each warp,
-// then one pass of warp 0 over the warp totals in `warp_tot` (shared,
-// WARP floats).  The order is fixed, so the result is deterministic.
-// Every thread of the block must call it.
-__device__ __forceinline__ float block_inclusive_scan(float v,
-                                                      float* warp_tot) {
-  const int l = threadIdx.x, lane = l % WARP, warp = l / WARP;
-  for (int d = 1; d < WARP; d <<= 1) {
-    const float t = __shfl_up_sync(FULL_MASK, v, d);
-    if (lane >= d) v += t;
-  }
-  if (lane == WARP - 1) warp_tot[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    const int nw = blockDim.x / WARP;
-    float t = lane < nw ? warp_tot[lane] : 0.f;
-    for (int d = 1; d < WARP; d <<= 1) {
-      const float u = __shfl_up_sync(FULL_MASK, t, d);
-      if (lane >= d) t += u;
-    }
-    if (lane < nw) warp_tot[lane] = t;
-  }
-  __syncthreads();
-  if (warp > 0) v += warp_tot[warp - 1];
-  return v;
-}
+// seg_psum's per-chunk scan (spmv_seg.cu): C chunks of L elements (L % 4
+// == 0) of each of the n_sids shards listed in `sids` (null: the k-th
+// launched shard is shard k), x (Sx, B, Lx) at x_stride, psum
+// (n_sids, B, C, L).  split_psum launches it on its flattened slab.
+// Returns cudaGetLastError().
+int launch_seg_psum(const float* vals, const int* cols, const float* x,
+                    long long x_stride, const int* sids, int n_sids, int C,
+                    int L, int Lx, int B, float* psum, cudaStream_t stream);

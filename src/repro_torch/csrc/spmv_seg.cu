@@ -30,7 +30,9 @@
 // keeps up to RHS_CHUNK columns, so one load of vals and cols feeds every
 // column of an (N, B) chunk.  Every add is an explicit round-to-nearest
 // intrinsic in a fixed order: deterministic, and column b of a batched
-// call equals the single-vector call bitwise.
+// call equals the single-vector call bitwise.  A chunk of any length
+// L % 4 == 0 is walked this way (the carry spans the steps), and
+// split_psum runs this scan (launch_seg_psum) on its flattened slab.
 //
 // seg_fixup: the pieces of shard k's row r are the contiguous run
 // [piece_ptr[r], piece_ptr[r+1]) of the row-ordered piece table,
@@ -90,7 +92,7 @@ __global__ void __launch_bounds__(CHUNKS_PER_BLOCK* WARP)
   if (chunk >= (long long)n_sids * C) return;   // whole warps leave
   const int k = (int)(chunk / C), c = (int)(chunk % C);
   const int b0 = blockIdx.y * NB, nb = min(NB, B - b0);
-  const int sid = sids[k];
+  const int sid = sids ? sids[k] : k;
   const float* xv = shard_x(x, x_stride, sid, b0, Lx);
   const long long src = ((long long)sid * C + c) * L;
   const long long cs = (long long)C * L;        // psum column stride
@@ -405,12 +407,11 @@ __global__ void __launch_bounds__(FIXUP_WARPS* WARP, NB == 1 ? 4 : 1)
 
 }  // namespace
 
-RT_API int rt_seg_psum(const float* vals, const int* cols, const float* x,
-                       long long x_stride, const int* sids, int n_sids, int C,
-                       int L, int Lx, int B, float* psum, void* stream) {
+int launch_seg_psum(const float* vals, const int* cols, const float* x,
+                    long long x_stride, const int* sids, int n_sids, int C,
+                    int L, int Lx, int B, float* psum, cudaStream_t s) {
   const long long chunks = (long long)n_sids * C;
   if (chunks == 0 || B == 0) return 0;
-  const cudaStream_t s = (cudaStream_t)stream;
   const unsigned blocks =
       (unsigned)((chunks + CHUNKS_PER_BLOCK - 1) / CHUNKS_PER_BLOCK);
   constexpr int threads = CHUNKS_PER_BLOCK * WARP;
@@ -423,6 +424,13 @@ RT_API int rt_seg_psum(const float* vals, const int* cols, const float* x,
         <<<dim3(blocks, (B + RHS_CHUNK - 1) / RHS_CHUNK), threads, 0, s>>>(
             vals, cols, x, x_stride, sids, n_sids, C, L, Lx, B, psum);
   return (int)cudaGetLastError();
+}
+
+RT_API int rt_seg_psum(const float* vals, const int* cols, const float* x,
+                       long long x_stride, const int* sids, int n_sids, int C,
+                       int L, int Lx, int B, float* psum, void* stream) {
+  return launch_seg_psum(vals, cols, x, x_stride, sids, n_sids, C, L, Lx, B,
+                         psum, (cudaStream_t)stream);
 }
 
 RT_API int rt_seg_fixup(const float* psum, const int* pieces,

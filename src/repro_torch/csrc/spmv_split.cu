@@ -12,34 +12,24 @@
 // split_combine: y[s, b, r] = sum_{t < NS} part[k, b, t, r]   (t in split order)
 //
 // What bounds them on the H100: bytes.  split_psum reads 8 bytes of
-// vals + cols, gathers 4 bytes of x and writes 4 bytes per element for
-// one multiply and one add; split_combine reads NS * R partials and
-// writes R values, one add per 4 bytes read.
+// vals + cols, gathers 4 bytes of x and writes 4 bytes per element and
+// column for one multiply and one add; split_combine reads NS * R partials
+// and writes R values, one add per 4 bytes read.
 //
 // Design.  The TPU's 2-D (NS, Cs / tc) grid existed so that a slab of
 // few chunks still filled the grid steps; on Hopper every chunk of the
-// (NS * Cs, L) view is one independent block of L threads anyway, so
-// split_psum is a block scan (block_inclusive_scan, common.cuh) over
-// that view with one shared x: Cs needs no sublane padding and NS no
-// divisor.  split_combine: one thread owns one row and walks the split
-// axis, so neighbouring threads read neighbouring rows (coalesced) and
-// the sum order is fixed: deterministic, no atomics.
+// (NS * Cs, L) view is independent anyway, and that view is exactly one
+// shard of seg_psum's operands with one shared x: split_psum is
+// seg_psum's warp-per-chunk scan (launch_seg_psum, spmv_seg.cu) on it,
+// so one 16-byte load of vals and cols feeds up to RHS_CHUNK columns, a
+// chunk of any length L % 4 == 0 is walked in steps, Cs needs no sublane
+// padding and NS no divisor, and the result is seg_psum's, bitwise.
+// split_combine: one thread owns one row and walks the split axis, so
+// neighbouring threads read neighbouring rows (coalesced) and the sum
+// order is fixed: deterministic, no atomics.
 #include "common.cuh"
 
 namespace {
-
-__global__ void split_psum_kernel(const float* __restrict__ vals,
-                                  const int* __restrict__ cols,
-                                  const float* __restrict__ x, int C, int L,
-                                  int n, float* __restrict__ psum) {
-  __shared__ float warp_tot[WARP];
-  const int c = blockIdx.x, b = blockIdx.y;
-  const long long off = (long long)c * L + threadIdx.x;
-  const float* xv = x + (long long)b * n;
-  const float v = block_inclusive_scan(__fmul_rn(vals[off], xv[cols[off]]),
-                                       warp_tot);
-  psum[((long long)b * C + c) * L + threadIdx.x] = v;
-}
 
 __global__ void split_combine_kernel(const float* __restrict__ part,
                                      const int* __restrict__ sids, int n_sids,
@@ -56,15 +46,13 @@ __global__ void split_combine_kernel(const float* __restrict__ part,
 
 }  // namespace
 
-// C = NS * Cs chunks of L elements; x is (B, n), psum (B, C, L).
+// C = NS * Cs chunks of L elements; x is (B, n), psum (B, C, L): seg_psum's
+// scan on one shard (the slab), x as one shared (1, B, n) buffer.
 RT_API int rt_split_psum(const float* vals, const int* cols, const float* x,
                          int C, int L, int n, int B, float* psum,
                          void* stream) {
-  if (C == 0 || B == 0) return 0;
-  dim3 grid((unsigned)C, (unsigned)B);
-  split_psum_kernel<<<grid, L, 0, (cudaStream_t)stream>>>(vals, cols, x, C,
-                                                          L, n, psum);
-  return (int)cudaGetLastError();
+  return launch_seg_psum(vals, cols, x, 0, nullptr, 1, C, L, n, B, psum,
+                         (cudaStream_t)stream);
 }
 
 RT_API int rt_split_combine(const float* part, const int* sids, int n_sids,

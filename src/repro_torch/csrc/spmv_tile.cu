@@ -73,6 +73,13 @@
 // Both tile_contrib and the dense walk add a lane's 4 cells of a row in
 // column order into its running partial, then sum the 32 lanes with the
 // butterfly of warp_sum, so each column equals the single-vector call.
+//
+// These fast walks take (8k, 128) tiles (tile_contrib: (8, 128)).  Every
+// other shape the reference takes goes to the general walks (below):
+// plain warps over 8-row groups with lanes across the row in 32-cell
+// strides, the mask read a byte at a time (a mask row is bn / 8 bytes, so
+// the 16-byte mask load does not carry over), and tile_contrib's zero fill
+// in 4-byte stores (bm * rows need not be a multiple of 4).
 #include "common.cuh"
 
 namespace {
@@ -84,8 +91,11 @@ constexpr int STEPS = 2;           // tile_walk_spmv: warp steps loaded at once
 // 175 registers to 109, and spills with RHS_CHUNK columns (ptxas -v); 4
 // spills with one.
 constexpr int PREFETCH = 1;
-// 16-byte zero stores a thread of a tile_contrib fill block makes.
+// Zero stores a thread of a tile_contrib fill block makes: 16 bytes each
+// at (8, 128) tiles, 4 at any other shape.
 constexpr int FILL_STORES = 4;
+// Rows of a tile one warp of a general walk (any tile shape) owns.
+constexpr int GROUP_ROWS = 8;
 
 // The lanes-across-row walk of tile_contrib and the null-mask walk: a warp
 // owns 8 rows of a run of (8k, 128) tiles, lane l cells 4l .. 4l+3 of each
@@ -226,6 +236,31 @@ __device__ __forceinline__ void store_rows(const float (&part)[8][NB],
   }
 }
 
+// A fill block's share of zeroing rows `from` .. R of every listed shard
+// and column of the chunk, one V (float4 or float) a store, in a
+// grid-stride loop over the fill blocks (those from tile_blocks on).  With
+// float4, from and R must be multiples of 4.
+template <class V>
+__device__ __forceinline__ void zero_rows_past(float* y, const int* sids,
+                                               int n_sids, int B, int b0,
+                                               int nb, long long R,
+                                               long long from,
+                                               int tile_blocks) {
+  constexpr int W = sizeof(V) / sizeof(float);
+  const long long per = (R - from) / W;
+  const long long total = (long long)n_sids * nb * per;
+  const long long step = (long long)(gridDim.x - tile_blocks) * blockDim.x;
+  for (long long q = (long long)(blockIdx.x - tile_blocks) * blockDim.x +
+                     threadIdx.x;
+       q < total; q += step) {
+    const long long kb = q / per;
+    const int k = (int)(kb / nb), b = (int)(kb % nb);
+    V* row = reinterpret_cast<V*>(y + ((long long)sids[k] * B + b0 + b) * R +
+                                  from);
+    row[q - kb * per] = V{};
+  }
+}
+
 // Blocks below tile_blocks: one warp per (k, mb < rb_used), k over sids.
 // The others fill rows rb_used*BM .. R of every listed shard and column
 // with zeros, a float4 a thread per step.
@@ -243,18 +278,8 @@ __global__ void tile_contrib_kernel(const float* __restrict__ data,
   const long long R = (long long)Rb * BM;
   const int b0 = blockIdx.y * NB, nb = min(NB, B - b0);
   if ((int)blockIdx.x >= tile_blocks) {
-    const long long per = (R - (long long)rb_used * BM) / 4;
-    const long long total = (long long)n_sids * nb * per;
-    const long long step = (long long)(gridDim.x - tile_blocks) * blockDim.x;
-    for (long long q = (long long)(blockIdx.x - tile_blocks) * blockDim.x +
-                       threadIdx.x;
-         q < total; q += step) {
-      const long long kb = q / per;
-      const int k = (int)(kb / nb), b = (int)(kb % nb);
-      float4* row = reinterpret_cast<float4*>(
-          y + ((long long)sids[k] * B + b0 + b) * R + (long long)rb_used * BM);
-      row[q - kb * per] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
+    zero_rows_past<float4>(y, sids, n_sids, B, b0, nb, R,
+                           (long long)rb_used * BM, tile_blocks);
     return;
   }
   const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
@@ -432,50 +457,293 @@ __global__ void tile_walk_dense_kernel(const float* __restrict__ data,
              (long long)Mb * bm, nb);
 }
 
+// -- the general walks: any tile shape (bm, bn), bm, bn >= 1 --------------
+//
+// One warp per (block row, group of up to GROUP_ROWS rows): the last
+// group of a block row is cut where bm % GROUP_ROWS != 0.  Lanes go across
+// the tile row in strides of 32 cells: lane l takes cells l, l + 32, ...
+// below bn (the last stride masked where bn % 32 != 0), of every row of its
+// group, in each tile of the block row in tile order.  For a cell column j
+// of tile t the lane first finds which of its group's rows read it (the
+// masked walk: the row's mask byte j / 8, bit 7 - j % 8, read byte by byte
+// since a mask row is only bn / 8 bytes; the null-mask walk and
+// tile_contrib: every row), gathers x once for them (RHS_CHUNK columns
+// from one cell load), then adds each such row's cell into its running
+// partial.  Each row's 32 partials are summed once, at the end, with
+// warp_sum's butterfly.  Each column's adds run in this fixed order, so
+// batched columns equal the single-vector call bitwise.
+
+// The masked walk's cells: only the marked ones, x at the tile's block
+// column (a mask marks no cell past n).
+struct MaskedCells {
+  const float* data;
+  const unsigned char* mask;
+  const int* tile_cols;
+  const float* x;          // column b0 of x
+  long long col_stride;    // floats between two columns of x
+  int bm, bn, n;
+  __device__ __forceinline__ unsigned rows(long long t, int r0, int nr,
+                                           int j) const {
+    if ((long long)tile_cols[t] * bn + j >= n) return 0u;
+    const unsigned char* m = mask + (t * bm + r0) * (bn / 8) + j / 8;
+    unsigned on = 0u;
+    for (int i = 0; i < nr; ++i)
+      on |= (unsigned)((m[(long long)i * (bn / 8)] >> (7 - j % 8)) & 1) << i;
+    return on;
+  }
+  __device__ __forceinline__ float xval(long long t, int j, int b) const {
+    return x[b * col_stride + (long long)tile_cols[t] * bn + j];
+  }
+};
+
+// The null-mask walk's cells (the Block-ELL shims' zero-padded slab):
+// every cell, x at the tile's block column, 0 past n.
+struct DenseCells {
+  const float* data;
+  const int* tile_cols;
+  const float* x;          // column b0 of x
+  long long col_stride;
+  int bm, bn, n;
+  __device__ __forceinline__ unsigned rows(long long, int, int nr,
+                                           int) const {
+    return (1u << nr) - 1u;
+  }
+  __device__ __forceinline__ float xval(long long t, int j, int b) const {
+    const long long c = (long long)tile_cols[t] * bn + j;
+    return c < n ? x[b * col_stride + c] : 0.f;
+  }
+};
+
+// tile_contrib's cells: every cell of the shard's tiles, x through the
+// lane positions xcol.
+struct FlatCells {
+  const float* data;       // tile 0 of the shard
+  const int* xcol;         // tile 0's lane positions
+  const float* x;          // column b0 of the shard's x buffer
+  long long col_stride;
+  int bm, bn;
+  __device__ __forceinline__ unsigned rows(long long, int, int nr,
+                                           int) const {
+    return (1u << nr) - 1u;
+  }
+  __device__ __forceinline__ float xval(long long t, int j, int b) const {
+    return x[b * col_stride + xcol[t * bn + j]];
+  }
+};
+
+// Tiles lo .. hi-1 of a block row, rows r0 .. r0+nr-1 of each, into
+// `part` (a row and a column each), in the order set out above.
+template <int NB, class Cells>
+__device__ __forceinline__ void general_walk(const Cells& c, int lo, int hi,
+                                             int r0, int nr, int nb,
+                                             float (&part)[GROUP_ROWS][NB]) {
+  const int lane = threadIdx.x % WARP;
+  for (long long t = lo; t < hi; ++t) {
+    for (int j = lane; j < c.bn; j += WARP) {
+      const unsigned on = c.rows(t, r0, nr, j);
+      if (!on) continue;
+      float xv[NB];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) xv[b] = b < nb ? c.xval(t, j, b) : 0.f;
+      const float* d = c.data + (t * c.bm + r0) * c.bn + j;
+#pragma unroll
+      for (int i = 0; i < GROUP_ROWS; ++i) {
+        if (!(on >> i & 1u)) continue;
+        const float v = d[(long long)i * c.bn];
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+          if (b < nb) part[i][b] = fmaf(v, xv[b], part[i][b]);
+      }
+    }
+  }
+}
+
+// Each of the group's nr rows summed over the warp (warp_sum), row i of
+// column b stored by lane i at out[b * col_stride + i].
+template <int NB>
+__device__ __forceinline__ void store_group(
+    const float (&part)[GROUP_ROWS][NB], int nr, int nb, float* out,
+    long long col_stride) {
+  const int lane = threadIdx.x % WARP;
+#pragma unroll
+  for (int i = 0; i < GROUP_ROWS; ++i) {
+    if (i >= nr) break;                         // warp-uniform
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      if (b >= nb) break;
+      const float v = warp_sum(part[i][b]);
+      if (lane == i) out[b * col_stride + i] = v;
+    }
+  }
+}
+
+// tile_walk_spmv at a shape the fast walks do not take: warp item
+// (mb, g) over Mb block rows of ceil(bm / GROUP_ROWS) groups.
+template <int NB, bool MASKED>
+__global__ void tile_walk_general_kernel(
+    const float* __restrict__ data, const unsigned char* __restrict__ mask,
+    const int* __restrict__ tile_cols, const int* __restrict__ tile_ptr,
+    const float* __restrict__ x, int Mb, int bm, int bn, int n, int B,
+    float* __restrict__ y) {
+  const int warp = threadIdx.x / WARP;
+  const int groups = (bm + GROUP_ROWS - 1) / GROUP_ROWS;
+  const long long item = (long long)blockIdx.x * WARPS_PER_BLOCK + warp;
+  if (item >= (long long)Mb * groups) return;
+  const int mb = (int)(item / groups), g = (int)(item % groups);
+  const int r0 = g * GROUP_ROWS, nr = min(GROUP_ROWS, bm - r0);
+  const int b0 = blockIdx.y * NB, nb = min(NB, B - b0);
+  const float* xb = x + (long long)b0 * n;
+  float part[GROUP_ROWS][NB] = {};
+  if (MASKED)
+    general_walk<NB>(MaskedCells{data, mask, tile_cols, xb, n, bm, bn, n},
+                     tile_ptr[mb], tile_ptr[mb + 1], r0, nr, nb, part);
+  else
+    general_walk<NB>(DenseCells{data, tile_cols, xb, n, bm, bn, n},
+                     tile_ptr[mb], tile_ptr[mb + 1], r0, nr, nb, part);
+  const long long R = (long long)Mb * bm;
+  store_group(part, nr, nb, y + b0 * R + (long long)mb * bm + r0, R);
+}
+
+// tile_contrib at a shape other than (8, 128): blocks below tile_blocks
+// hold warp items (k, mb < rb_used, g); the others zero rows
+// rb_used*bm .. R of every listed shard and column, a float a store (bm
+// and so the rows' starts are not multiples of 4 in general).
+template <int NB>
+__global__ void tile_contrib_general_kernel(
+    const float* __restrict__ data, const int* __restrict__ xcol,
+    const int* __restrict__ tile_ptr, const float* __restrict__ x,
+    long long x_stride, const int* __restrict__ sids, int n_sids, int Tp,
+    int Rb, int rb_used, int bm, int bn, int Lx, int B, int tile_blocks,
+    float* __restrict__ y) {
+  const long long R = (long long)Rb * bm;
+  const int b0 = blockIdx.y * NB, nb = min(NB, B - b0);
+  if ((int)blockIdx.x >= tile_blocks) {
+    zero_rows_past<float>(y, sids, n_sids, B, b0, nb, R,
+                          (long long)rb_used * bm, tile_blocks);
+    return;
+  }
+  const int warp = threadIdx.x / WARP;
+  const int groups = (bm + GROUP_ROWS - 1) / GROUP_ROWS;
+  const long long per_shard = (long long)rb_used * groups;
+  const long long item = (long long)blockIdx.x * WARPS_PER_BLOCK + warp;
+  if (item >= (long long)n_sids * per_shard) return;
+  const int k = (int)(item / per_shard);
+  const long long rem = item % per_shard;
+  const int mb = (int)(rem / groups), g = (int)(rem % groups);
+  const int r0 = g * GROUP_ROWS, nr = min(GROUP_ROWS, bm - r0);
+  const int sid = sids[k];
+  const int* ptr = tile_ptr + (long long)sid * (Rb + 1);
+  const long long tile0 = (long long)sid * Tp;
+  float part[GROUP_ROWS][NB] = {};
+  general_walk<NB>(FlatCells{data + tile0 * bm * bn, xcol + tile0 * bn,
+                             shard_x(x, x_stride, sid, b0, Lx), Lx, bm, bn},
+                   ptr[mb], ptr[mb + 1], r0, nr, nb, part);
+  store_group(part, nr, nb,
+              y + ((long long)sid * B + b0) * R + (long long)mb * bm + r0, R);
+}
+
+// One launch of the tile walk for NB columns a thread: the fast walks at
+// (8k, 128) tiles, the general walks at any other shape.
+template <int NB>
+void launch_tile_walk(bool fast, dim3 grid, cudaStream_t s, const float* data,
+                      const unsigned char* mask, const int* tile_cols,
+                      const int* tile_ptr, const float* x, int Mb, int bm,
+                      int bn, int n, int B, float* y) {
+  constexpr int threads = WARPS_PER_BLOCK * WARP;
+  if (fast && mask)
+    tile_walk_kernel<NB><<<grid, threads, 0, s>>>(data, mask, tile_cols,
+                                                  tile_ptr, x, Mb, bm, n, B,
+                                                  y);
+  else if (fast)
+    tile_walk_dense_kernel<NB><<<grid, threads, 0, s>>>(
+        data, tile_cols, tile_ptr, x, Mb, bm, n, B, y);
+  else if (mask)
+    tile_walk_general_kernel<NB, true><<<grid, threads, 0, s>>>(
+        data, mask, tile_cols, tile_ptr, x, Mb, bm, bn, n, B, y);
+  else
+    tile_walk_general_kernel<NB, false><<<grid, threads, 0, s>>>(
+        data, mask, tile_cols, tile_ptr, x, Mb, bm, bn, n, B, y);
+}
+
+// tile_contrib at a shape other than (8, 128): the grid of the fast path
+// with ceil(bm / GROUP_ROWS) warps a block row, and fill blocks of
+// FILL_STORES 4-byte stores a thread.
+int launch_contrib_general(const float* data, const int* xcol,
+                           const int* tile_ptr, const float* x,
+                           long long x_stride, const int* sids, int n_sids,
+                           int Tp, int Rb, int rb_used, int bm, int bn,
+                           int Lx, int B, float* y, cudaStream_t s) {
+  const int groups = (bm + GROUP_ROWS - 1) / GROUP_ROWS;
+  const long long items = (long long)n_sids * rb_used * groups;
+  const long long tile_blocks =
+      (items + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
+  const int nb = B < RHS_CHUNK ? B : RHS_CHUNK;   // columns of chunk 0
+  const long long fill = (long long)n_sids * nb * (Rb - rb_used) * bm;
+  const long long per_block =
+      (long long)WARPS_PER_BLOCK * WARP * FILL_STORES;
+  const long long fill_blocks = (fill + per_block - 1) / per_block;
+  if (tile_blocks + fill_blocks == 0) return 0;
+  const dim3 grid((unsigned)(tile_blocks + fill_blocks),
+                  (unsigned)((B + RHS_CHUNK - 1) / RHS_CHUNK));
+  const int threads = WARPS_PER_BLOCK * WARP;
+  if (B == 1)
+    tile_contrib_general_kernel<1><<<grid, threads, 0, s>>>(
+        data, xcol, tile_ptr, x, x_stride, sids, n_sids, Tp, Rb, rb_used, bm,
+        bn, Lx, B, (int)tile_blocks, y);
+  else
+    tile_contrib_general_kernel<RHS_CHUNK><<<grid, threads, 0, s>>>(
+        data, xcol, tile_ptr, x, x_stride, sids, n_sids, Tp, Rb, rb_used, bm,
+        bn, Lx, B, (int)tile_blocks, y);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// data (T, bm, BN), mask (T, bm, BN/8) packed occupancy or null (every
+// data (T, bm, bn), mask (T, bm, bn/8) packed occupancy or null (every
 // cell occupied), tile_cols (T,), tile_ptr (Mb+1,), x (B, n),
-// y (B, Mb*bm); bm a multiple of 8, BN = 128.
+// y (B, Mb*bm); bm, bn >= 1, and bn % 8 == 0 with a mask.  One warp per
+// (block row, group of 8 rows) on the fast walks, of GROUP_ROWS rows on
+// the general ones.
 RT_API int rt_tile_walk_spmv(const float* data, const unsigned char* mask,
                              const int* tile_cols, const int* tile_ptr,
                              const float* x, int Mb, int bm, int bn, int n,
                              int B, float* y, void* stream) {
-  if (bn != 128 || bm <= 0 || bm % 8) return (int)cudaErrorInvalidValue;
-  const long long items = (long long)Mb * (bm / 8);
+  if (bm <= 0 || bn <= 0 || (mask && bn % 8))
+    return (int)cudaErrorInvalidValue;
+  const bool fast = bn == 128 && bm % 8 == 0;
+  const int groups = fast ? bm / 8 : (bm + GROUP_ROWS - 1) / GROUP_ROWS;
+  const long long items = (long long)Mb * groups;
   if (items == 0 || B == 0) return 0;
   const unsigned blocks =
       (unsigned)((items + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK);
   const cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid(blocks, (B + RHS_CHUNK - 1) / RHS_CHUNK);
-  const int threads = WARPS_PER_BLOCK * WARP;
-  if (mask == nullptr && B == 1)
-    tile_walk_dense_kernel<1><<<blocks, threads, 0, s>>>(
-        data, tile_cols, tile_ptr, x, Mb, bm, n, B, y);
-  else if (mask == nullptr)
-    tile_walk_dense_kernel<RHS_CHUNK><<<grid, threads, 0, s>>>(
-        data, tile_cols, tile_ptr, x, Mb, bm, n, B, y);
-  else if (B == 1)
-    tile_walk_kernel<1><<<blocks, threads, 0, s>>>(
-        data, mask, tile_cols, tile_ptr, x, Mb, bm, n, B, y);
+  if (B == 1)
+    launch_tile_walk<1>(fast, dim3(blocks), s, data, mask, tile_cols,
+                        tile_ptr, x, Mb, bm, bn, n, B, y);
   else
-    tile_walk_kernel<RHS_CHUNK><<<grid, threads, 0, s>>>(
-        data, mask, tile_cols, tile_ptr, x, Mb, bm, n, B, y);
+    launch_tile_walk<RHS_CHUNK>(
+        fast, dim3(blocks, (B + RHS_CHUNK - 1) / RHS_CHUNK), s, data, mask,
+        tile_cols, tile_ptr, x, Mb, bm, bn, n, B, y);
   return (int)cudaGetLastError();
 }
 
-// tile_contrib's grid along x: ceil(n_sids * rb_used / WARPS_PER_BLOCK)
-// tile blocks, then enough fill blocks to zero rows rb_used*BM .. R of
-// every listed shard and column of a chunk, FILL_STORES 16-byte stores a
-// thread.
+// tile_contrib's grid along x at (8, 128) tiles:
+// ceil(n_sids * rb_used / WARPS_PER_BLOCK) tile blocks, then enough fill
+// blocks to zero rows rb_used*BM .. R of every listed shard and column of
+// a chunk, FILL_STORES 16-byte stores a thread.  Any other shape (BM,
+// BN >= 1) takes launch_contrib_general.
 RT_API int rt_tile_spmv(const float* data, const int* xcol,
                         const int* tile_ptr, const float* x,
                         long long x_stride, const int* sids, int n_sids,
                         int Tp, int Rb, int rb_used, int BM, int BN, int Lx,
                         int B, float* y, void* stream) {
-  if (BM != 8 || BN != 128 || rb_used < 0 || rb_used > Rb)
+  if (BM <= 0 || BN <= 0 || rb_used < 0 || rb_used > Rb)
     return (int)cudaErrorInvalidValue;
   if (n_sids == 0 || B == 0) return 0;
+  if (BM != 8 || BN != 128)
+    return launch_contrib_general(data, xcol, tile_ptr, x, x_stride, sids,
+                                  n_sids, Tp, Rb, rb_used, BM, BN, Lx, B, y,
+                                  (cudaStream_t)stream);
   const long long items = (long long)n_sids * rb_used;
   const long long tile_blocks =
       (items + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;

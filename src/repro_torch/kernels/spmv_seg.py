@@ -47,9 +47,9 @@ def seg_psum(vals, cols, x, sids, *, out=None):
     if cols.shape != vals.shape or out.shape != (n, B, C, L) \
             or x.shape[0] not in (1, S):
         raise ValueError("seg_psum: operand shapes disagree")
-    if L % 32 or not 0 < L <= 1024:
-        raise ValueError(f"seg_psum: chunk {L} must be a multiple of 32 "
-                         f"and at most 1024")
+    if L % 4 or L <= 0:
+        raise ValueError(f"seg_psum: chunk {L} must be a positive multiple "
+                         f"of 4 (the kernel moves 4 elements a load)")
     if any(t.data_ptr() % 16 for t in (vals, cols, out)):
         raise ValueError("seg_psum: vals, cols and out must be 16-byte "
                          "aligned (the kernel moves 4 elements a load)")

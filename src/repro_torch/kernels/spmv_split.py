@@ -7,7 +7,10 @@ Counterpart of ``repro.kernels.spmv_split.split_psum`` and
 The executor's split shards take stage 1 from
 :func:`~repro_torch.kernels.spmv_seg.seg_psum` on their flattened slab,
 as the reference's device path does; the host op
-``ops.split_spmv`` takes it from :func:`split_psum`.
+``ops.split_spmv`` takes it from :func:`split_psum`, which launches
+``seg_psum``'s kernel on the (1, NS*Cs, L) view of the slab with x as one
+shared (1, B, n) buffer: its result is ``seg_psum``'s on that view,
+bitwise.
 
     psum[b, s, c, l] = sum_{j <= l} vals[s, c, j] * x[b, cols[s, c, j]]
     y[sids[k], b, r] = sum_t part[k, b, t, r]     (t = 0 .. NS-1, in order)
@@ -45,9 +48,12 @@ def split_psum(vals, cols, x, *, out=None):
                x=(x, f32, 2), out=(out, f32, 4))
     if cols.shape != vals.shape or out.shape != (B, NS, Cs, L):
         raise ValueError("split_psum: operand shapes disagree")
-    if L % 32 or not 0 < L <= 1024:
-        raise ValueError(f"split_psum: chunk {L} must be a multiple of 32 "
-                         f"and at most 1024 (one thread per element)")
+    if L % 4 or L <= 0:
+        raise ValueError(f"split_psum: chunk {L} must be a positive multiple "
+                         f"of 4 (the kernel moves 4 elements a load)")
+    if any(t.data_ptr() % 16 for t in (vals, cols, out)):
+        raise ValueError("split_psum: vals, cols and out must be 16-byte "
+                         "aligned (the kernel moves 4 elements a load)")
     if NS * Cs == 0 or B == 0:
         return out
     _lib.call("split_psum", "rt_split_psum", vals.data_ptr(), cols.data_ptr(),

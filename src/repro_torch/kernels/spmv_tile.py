@@ -31,6 +31,10 @@
   version multiplies whole tiles and ignores ``mask``, so the card's check
   of the kernel against it also checks that the skipped cells held
   nothing.
+
+Both take any tile shape: (8, 128) tiles (``tile_contrib``) and (8k, 128)
+tiles (``tile_walk_spmv``) run the fast walks, every other shape a general
+walk (one warp per 8-row group, lanes across the row in 32-cell strides).
 """
 from __future__ import annotations
 
@@ -82,9 +86,8 @@ def tile_contrib(data, xcol, brow, tile_ptr, x, sids, *, rb_used=None,
     _lib.check(data.device, data=(data, f32, 4), xcol=(xcol, i32, 3),
                tile_ptr=(tile_ptr, i32, 2), x=(x, f32, 3),
                sids=(sids, i32, 1), out=(out, f32, 3))
-    if (bm, bn) != (8, 128):
-        raise ValueError(f"tile_contrib: the kernel takes (8, 128) tiles, "
-                         f"got {(bm, bn)}")
+    if bm < 1 or bn < 1:
+        raise ValueError(f"tile_contrib: empty tile shape {(bm, bn)}")
     if xcol.shape != (S, Tp, bn) or tile_ptr.shape[0] != S \
             or out.shape != (S, B, Rb * bm) or x.shape[0] not in (1, S):
         raise ValueError("tile_contrib: operand shapes disagree")
@@ -137,9 +140,9 @@ def tile_walk_spmv(data, tile_cols, tile_ptr, x, *, mask=None, out=None):
                x=(x, f32, 2), out=(out, f32, 2))
     if mask is not None:
         _lib.check(data.device, mask=(mask, torch.uint8, 3))
-    if bn != 128 or bm % 8 or bm == 0:
-        raise ValueError(f"tile_walk_spmv: the kernel takes (8k, 128) "
-                         f"tiles, got {(bm, bn)}")
+    if bm < 1 or bn < 1 or (mask is not None and bn % 8):
+        raise ValueError(f"tile_walk_spmv: tile shape {(bm, bn)} must be "
+                         f"non-empty, with bn a multiple of 8 with a mask")
     if tile_cols.numel() != T or out.shape != (B, Mb * bm) \
             or (mask is not None and mask.shape != (T, bm, bn // 8)):
         raise ValueError("tile_walk_spmv: operand shapes disagree")

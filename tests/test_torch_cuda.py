@@ -426,3 +426,177 @@ def test_seg_psum_on_card(device, L):
             return spmv_seg.seg_psum(vals, cols, v, sids)
         _columns_match_single(psum, x, 1)
         assert torch.equal(psum(x), psum(x))
+
+
+# --------------------------------------------------------------------------
+# chunks over 1024 and tile shapes other than (8k, 128)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B", [1, 3, 8, 11])
+@pytest.mark.parametrize("L", [2048, 4096])
+def test_long_chunk_psums_on_card(device, L, B):
+    # seg_psum on two shards read in reverse order; split_psum (NS = 3) is
+    # seg_psum's scan on the flattened (1, NS*Cs, L) slab, bitwise; B = 11
+    # spans two chunks of 8 columns
+    A = mats.powerlaw_tail(4096, 4096 * 8, n_monster=2, seed=0)
+    seg = ops.seg_from_csr(A, chunk=L)
+    assert seg.vals.shape[1] == L
+    vals = torch.from_numpy(np.stack([seg.vals, -seg.vals])).to(device)
+    cols = torch.from_numpy(np.stack([seg.cols, seg.cols])).to(device)
+    sids = torch.tensor([1, 0], dtype=torch.int32, device=device)
+    x = torch.from_numpy(np.ascontiguousarray(np.stack(
+        [_x(A.ncols, B).T] * 2))).to(device)
+    _card_and_plain(spmv_seg.seg_psum, spmv_seg.seg_psum_plain,
+                    (vals, cols, x, sids), (vals.abs(), cols, x.abs(), sids))
+    _columns_match_single(lambda v: spmv_seg.seg_psum(vals, cols, v, sids),
+                          x, 1)
+    spl = ops.split_from_csr(A, 3, chunk=L)
+    NS, Cs, _ = spl.vals.shape
+    sv, sc = (torch.from_numpy(a).to(device) for a in (spl.vals, spl.cols))
+    xb = torch.from_numpy(_x(A.ncols, B).T.copy()).to(device)
+    _card_and_plain(spmv_split.split_psum, spmv_split.split_psum_plain,
+                    (sv, sc, xb), (sv.abs(), sc, xb.abs()))
+    flat = spmv_seg.seg_psum(sv.view(1, NS * Cs, L), sc.view(1, NS * Cs, L),
+                             xb[None], torch.zeros(1, dtype=torch.int32,
+                                                   device=device))
+    got = spmv_split.split_psum(sv, sc, xb)
+    assert torch.equal(got.view(flat.shape), flat)
+    _columns_match_single(lambda v: spmv_split.split_psum(sv, sc, v), xb, 0)
+
+
+@pytest.mark.parametrize("chunk", [2048, 4096])
+def test_long_chunk_ops_on_card(device, chunk):
+    # the per-format ops that raised on the card at chunks over 1024
+    A = mats.powerlaw(1024, 8000, seed=5)
+    X = _x(A.ncols, 3)
+    seg = ops.seg_from_csr(A, chunk=chunk)
+    spl = ops.split_from_csr(A, 2, chunk=chunk)
+    ns, Cs, L = spl.vals.shape
+    pieces = np.stack([spl.piece_split * Cs + spl.piece_chunk, spl.piece_lo,
+                       spl.piece_hi, spl.piece_row, spl.piece_split], 1)
+    flat = [a.reshape(ns * Cs, L) for a in (spl.vals, spl.cols, spl.rows)]
+    for run in (lambda v: ops.seg_spmv(seg, v, device=device),
+                lambda v: ops.split_spmv(spl, v, device=device),
+                lambda v: ops.split_flat_spmv(*flat, pieces, v,
+                                              num_rows=A.nrows,
+                                              num_splits=ns, device=device)):
+        Y = run(X)
+        np.testing.assert_allclose(Y.cpu(), csr_matvec(A, X), rtol=2e-4,
+                                   atol=2e-4)
+        for b in range(3):
+            assert torch.equal(Y[:, b], run(X[:, b].copy()))
+
+
+#: Tile shapes the fast walks do not all take: (16, 128) is the mask walk's
+#: fast path and tile_contrib's general one; bm = 12 and 5 cut the last row
+#: group, bn = 40 the last lane stride.
+SHAPES = [(8, 256), (16, 64), (4, 128), (8, 64), (16, 128), (12, 40),
+          (5, 40)]
+
+
+def flat_tile_case(t, n, B, *, shared_x=False, seed=0):
+    """``tile_contrib``'s flat operands (S = 4) of a TileMatrix ``t`` over
+    n columns, on the CPU, as the executor stacks them: shard 0 holds t's
+    tiles, shard 1 none, shard 2 those of t's first half of block rows,
+    shard 3 (not listed) its last tile; padding tiles past each shard's
+    real ones hold NaN at block row Rb = Mb + 3, so ``rb_used`` < Rb.  A
+    lane of zero cells reads x position 0, the others x at the tile's
+    block column, clamped below n.  Returns data, xcol, brow, tile_ptr,
+    x ((1 or 4), B, n), sids = [2, 1, 0], rb_used and Rb."""
+    T, bm, bn = t.data.shape
+    Mb = len(t.tile_ptr) - 1
+    Rb = Mb + 3
+    spans = [(0, T), (0, 0), (0, int(t.tile_ptr[Mb // 2])), (T - 1, T)]
+    Tp = T + 4
+    data = np.full((4, Tp, bm, bn), np.nan, np.float32)
+    xcol = np.zeros((4, Tp, bn), np.int32)
+    brow = np.full((4, Tp), Rb, np.int32)
+    lanes = np.minimum(t.tile_cols[:, None].astype(np.int64) * bn
+                       + np.arange(bn), n - 1)
+    lanes = np.where((t.data != 0).any(axis=1), lanes, 0)
+    for s, (a, b) in enumerate(spans):
+        data[s, :b - a], xcol[s, :b - a] = t.data[a:b], lanes[a:b]
+        brow[s, :b - a] = t.tile_rows[a:b]
+    tile_ptr = np.stack([np.searchsorted(b, np.arange(Rb + 1))
+                         for b in brow]).astype(np.int32)
+    rb_used = int(t.tile_rows.max()) + 1
+    x = np.random.default_rng(seed).standard_normal(
+        (1 if shared_x else 4, B, n)).astype(np.float32)
+    return ([torch.from_numpy(a) for a in (data, xcol, brow, tile_ptr, x)]
+            + [torch.tensor([2, 1, 0], dtype=torch.int32), rb_used, Rb])
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 11])
+@pytest.mark.parametrize("bm,bn", SHAPES)
+def test_tile_walks_at_any_shape_on_card(device, bm, bn, B):
+    # the masked walk and the null-mask walk against their plain version,
+    # with stored zeros, block rows without tiles and a cut last x block;
+    # then tile_spmv against csr_matvec
+    A = _stored_zeros(_cut_tail())
+    t = ops.tile_from_csr(A, bm=bm, bn=bn)
+    assert (np.diff(t.tile_ptr) == 0).any()
+    data, tcols, tptr, mask = (torch.from_numpy(a).to(device) for a in (
+        t.data, t.tile_cols, t.tile_ptr, t.mask))
+    xb = torch.from_numpy(_x(A.ncols, B).T.copy()).to(device)
+    for m in (mask, None):
+        def walk(v, m=m):
+            return spmv_tile.tile_walk_spmv(data, tcols, tptr, v, mask=m)
+        _card_and_plain(lambda *a: walk(a[3]), spmv_tile.tile_walk_spmv_plain,
+                        (data, tcols, tptr, xb),
+                        (data.abs(), tcols, tptr, xb.abs()))
+        _columns_match_single(walk, xb, 0)
+    X = _x(A.ncols, B)
+    Y = ops.tile_spmv(t, X, device=device)
+    np.testing.assert_allclose(Y.cpu(), csr_matvec(A, X), rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("shared_x", [False, True])
+@pytest.mark.parametrize("B", [1, 3, 8, 11])
+@pytest.mark.parametrize("bm,bn", SHAPES)
+def test_tile_contrib_at_any_shape_on_card(device, bm, bn, B, shared_x):
+    # padding tiles (NaN, never read), a shard with no tiles, rb_used < Rb
+    # (rows from rb_used * bm zeroed by 4-byte stores, odd bm too); out
+    # starts as NaN, and shard 3 is not listed
+    A = _stored_zeros(_cut_tail())
+    t = ops.tile_from_csr(A, bm=bm, bn=bn)
+    data, xcol, brow, tile_ptr, x, sids, rb_used, Rb = flat_tile_case(
+        t, A.ncols, B, shared_x=shared_x)
+    args = [v.to(device) for v in (data, xcol, brow, tile_ptr)]
+    xd, sd, rows = x.to(device), sids.to(device), sids.long()
+
+    def contrib(v, rb=rb_used):
+        out = torch.full((4, v.shape[1], Rb * bm), float("nan"),
+                         device=device)
+        return spmv_tile.tile_contrib(*args, v, sd, rb_used=rb, out=out)
+    _lib.reset_launch_counts()
+    got = contrib(xd).cpu()
+    assert _lib.launch_counts["tile_contrib"] == 1
+    want = spmv_tile.tile_contrib_plain(data, xcol, brow, x, sids,
+                                        torch.zeros(got.shape))
+    scale = spmv_tile.tile_contrib_plain(data.abs(), xcol, brow, x.abs(),
+                                         sids, torch.zeros(got.shape))
+    assert bool((got[rows] - want[rows]).abs().le(
+        1e-5 * (1.0 + scale[rows])).all())
+    assert not got[rows, :, rb_used * bm:].any()
+    assert got[3].isnan().all()
+    _columns_match_single(lambda v: contrib(v)[rows], xd, 1)
+    assert torch.equal(contrib(xd, None).cpu()[rows], got[rows])
+
+
+@pytest.mark.parametrize("bm,bn", SHAPES)
+def test_tile_flat_spmv_at_any_shape_on_card(device, bm, bn):
+    A = _stored_zeros(_cut_tail())
+    t = ops.tile_from_csr(A, bm=bm, bn=bn)
+    xcols = np.minimum(t.tile_cols[:, None].astype(np.int64) * bn
+                       + np.arange(bn), A.ncols - 1)
+    X = _x(A.ncols, 3)
+
+    def run(v):
+        return ops.tile_flat_spmv(t.data, xcols, t.tile_rows, v,
+                                  num_rows=A.nrows, device=device)
+    Y = run(X)
+    np.testing.assert_allclose(Y.cpu(), csr_matvec(A, X), rtol=2e-4,
+                               atol=2e-4)
+    for b in range(3):
+        assert torch.equal(Y[:, b], run(X[:, b].copy()))

@@ -16,11 +16,15 @@ executor's entry points are used, so an older tree's port runs too: to
 compare two trees, run this once per tree, alternating, in one call.
 
 Prints the card's name and power limit, then one JSON line per phase
-with every repeat's times (ms).  Exits non-zero without CUDA.
+with every repeat's times (ms) and a SHA-256 digest of the bytes of the
+vector's and the block's outputs (``y_sha256``, ``block8_sha256``: the
+inputs come from a fixed seed, so equal digests across trees mean
+bitwise-equal outputs).  Exits non-zero without CUDA.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -78,7 +82,11 @@ def main(argv=None) -> int:
             for _ in range(REPEATS):
                 for kind, (timer, xs) in timers.items():
                     times[kind].append(timer(torch, lambda xs=xs: fn(xs), 10))
-            print(json.dumps({"phase": label, "port": P.__file__, **times}))
+            digests = {kind: hashlib.sha256(
+                fn(xs).cpu().numpy().tobytes()).hexdigest()[:16]
+                for kind, xs in (("y_sha256", xs1), ("block8_sha256", xs8))}
+            print(json.dumps({"phase": label, "port": P.__file__, **times,
+                              **digests}))
     return 0
 
 

@@ -25,7 +25,11 @@ launches with CUDA events (replayed as CUDA graphs), two turns in a row:
   and powerlaw_tail programs and on the per-format API's api/split8 and
   api/split64 fix-ups; and its ``CHUNKS_PER_BLOCK`` (``seg_psum``'s
   warps, one chunk each, a block): 2, 4, 8, 16, on the same programs'
-  ``seg_psum`` launches.
+  ``seg_psum`` launches and on api/split8's and api/split64's
+  ``split_psum`` (the same scan, on the flattened slab with one shared x),
+  there also with every column index 0 (``cols=0``: the same loads and
+  stores, but every x gather hits one sector, so the gap to the real
+  case is what the scattered gathers cost).
 
 Each for one vector and an (N, 8) block.  Every variant is first checked
 against the kernel's plain version (rtol = atol = 1e-5 on |A|·|x|; the
@@ -359,6 +363,12 @@ def seg_cases(torch, dev, rng, phases):
             for B in (1, 8):
                 xb = torch.from_numpy(rng.standard_normal(
                     (B, A.ncols)).astype(np.float32)).to(dev)
+                flat = (vals.view(1, NS * Cs, L), cols.view(1, NS * Cs, L))
+                for tag, c in (("", flat[1]),
+                               (" cols=0", torch.zeros_like(flat[1]))):
+                    scan_sweep(f"api/split{ns} B={B}{tag}", [(
+                        flat[0], c, xb[None], one,
+                        torch.empty((1, B, NS * Cs, L), device=dev))])
                 psum = spmv_split.split_psum(vals, cols, xb).view(
                     1, B, NS * Cs, L)
                 fixup_sweep(f"api/split{ns} B={B}", [(
