@@ -3,14 +3,25 @@
 
     python3 chip_smoke.py            # the full run, one card
 
-Builds the CUDA kernels from ``src/repro_torch/csrc`` and runs three
-phases through the executor's entry points (``lower``,
-``make_program_spmv_fn``, ``gather_b``), then a ``kernel_api`` phase
-through the per-format kernel API (``repro_torch.kernels``):
+Builds the CUDA kernels from ``src/repro_torch/csrc``, then runs a
+``planner`` phase on the host, three phases through the executor's entry
+points (``lower``, ``make_program_spmv_fn``, ``gather_b``) and a
+``kernel_api`` phase through the per-format kernel API
+(``repro_torch.kernels``):
 
-* ``cop20k_A``: the full Table-I size (120,000 rows) under the
-  autotuner's pick ``bfs/nonzero/seg/halo`` and under
-  ``cyclic/allgather/ell``;
+* ``planner``: ``autotune(make_matrix("cop20k_A"), num_shards=8)`` at
+  the full Table-I size (120,000 rows) with the default probe must pick
+  ``bfs/block/nonzero/halo/seg``; ``execute(prog, backend="emu")`` on
+  that program with the ``cext`` and ``numpy`` engines must give equal
+  ``EmuResult``s; ``relower`` to a plan with shards 0 and 1 on ``ell``
+  must keep stages 2-7 as the same objects and answer on the card
+  bitwise as ``lower`` of that plan does; a program saved with
+  ``save_program`` and read back with ``load_program`` must answer on
+  the card bitwise as the original.  Both pass the |A|·|x|-scaled
+  check below.  Prints one ``{"planner": ...}`` line of host seconds;
+* ``cop20k_A``: the same matrix under the autotuner's choice (so the
+  main path runs host CSR -> ``autotune`` -> ``lower`` -> the kernels)
+  and under ``cyclic/allgather/ell``;
 * ``blocked_band``: 131,072 rows, a heterogeneous tile/ell/hyb/seg/split
   program with mixed exchanges;
 * ``powerlaw_tail``: 131,072 rows under ``split`` (NS from
@@ -384,17 +395,26 @@ def measure_kernels(torch, prog, fn, xs, x_prog, device) -> dict:
     return set_bounds(stats)
 
 
-def phases():
-    """(label, matrix builder, [(plan label, plan)]) for the three phases."""
+#: The plan the autotuner picks for the full-size cop20k_A (the
+#: reference's pick on the same matrix).
+COP20K_PLAN = dict(layout="block", distribution="nonzero", reordering="bfs",
+                   exchange="halo", kernel="seg", num_shards=8)
+
+
+def phases(cop=None, cop_plan=None):
+    """(label, matrix builder, [(plan label, plan)]) for the three phases.
+    ``cop`` is the cop20k_A matrix and ``cop_plan`` the autotuner's plan
+    for it, from the planner phase; by default the matrix is built anew
+    and the plan is :data:`COP20K_PLAN`."""
     from repro_torch.core.spmv import SpmvPlan
     from repro_torch.data import matrices as mats
 
     M = 131072
+    cop_plan = cop_plan or SpmvPlan(**COP20K_PLAN)
     return [
-        ("cop20k_A", lambda: mats.make_matrix("cop20k_A"), [
-            ("cop20k_A/seg", SpmvPlan(reordering="bfs", distribution="nonzero",
-                                      kernel="seg", exchange="halo",
-                                      num_shards=8)),
+        ("cop20k_A", (lambda: cop) if cop is not None
+         else (lambda: mats.make_matrix("cop20k_A")), [
+            ("cop20k_A/seg", cop_plan),
             ("cop20k_A/ell", SpmvPlan(layout="cyclic", exchange="allgather",
                                       kernel="ell", num_shards=8))]),
         ("blocked_band", lambda: mats.blocked_band(M, 32 * M, seed=0), [
@@ -428,6 +448,88 @@ def answers_error(label, A, xs, ys) -> float:
                               / (1.0 + scale)).max()))
     check(err <= E2E_TOL, f"{label}: scaled error {err} > {E2E_TOL}")
     return err
+
+
+def planner_phase(torch, A, device, seed) -> tuple:
+    """The host layer on the full-size cop20k_A: ``autotune`` with the
+    default probe must pick :data:`COP20K_PLAN`; the Emu backend's
+    ``cext`` and ``numpy`` engines must agree; ``relower`` to a plan with
+    shards 0 and 1 on ``ell`` must share stages 2-7 and answer on the card
+    bitwise as ``lower`` of that plan does; and a saved and reloaded
+    program must answer on the card bitwise as the original.  Returns
+    the choice and the phase's summary (host seconds)."""
+    import tempfile
+
+    from repro_torch.core import _emu_cext, artifacts, program as P
+    from repro_torch.core.plan import autotune
+    from repro_torch.core.spmv import SpmvPlan
+
+    out = {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        value = fn()
+        out[key] = time.perf_counter() - t0
+        return value
+
+    choice = timed("autotune_s", lambda: autotune(A, num_shards=8))
+    out["probed"] = choice.probed
+    out["probe_engine"] = ("cext" if _emu_cext.load_kernel() is not None
+                           else "numpy")
+    out["plan"] = dataclasses.asdict(choice.plan)
+    check(choice.plan == SpmvPlan(**COP20K_PLAN),
+          f"planner: autotune picked {choice.plan}, not {COP20K_PLAN}")
+    prog = timed("lower_s", lambda: P.lower(A, choice.plan))
+    emu = {engine: timed(f"emu_{engine}_s", lambda e=engine: P.execute(
+        prog, backend="emu", engine=e)) for engine in ("cext", "numpy")}
+    a, b = emu["cext"], emu["numpy"]
+    out["emu_engines_equal"] = bool(
+        a.ticks == b.ticks and a.migrations == b.migrations
+        and np.array_equal(a.instr_per_nodelet, b.instr_per_nodelet)
+        and np.array_equal(a.residency, b.residency))
+    check(out["emu_engines_equal"], "planner: the cext and numpy Emu "
+                                    "engines disagree")
+    out["emu_ticks"] = a.ticks
+
+    plan2 = dataclasses.replace(choice.plan,
+                                shard_kernels=("ell", "ell") + ("seg",) * 6)
+    prog2 = timed("relower_s", lambda: P.relower(prog, plan2))
+    out["relower_shares_2_to_7"] = all(
+        prog2.stages[p] is prog.stages[p] for p in range(2, 8))
+    check(out["relower_shares_2_to_7"]
+          and prog2.shard_kernels()[:2] == ("ell", "ell"),
+          "planner: relower shared or rebuilt the wrong stages")
+    with tempfile.TemporaryDirectory() as tmp:
+        timed("save_s", lambda: artifacts.save_program(
+            prog, tmp, source=A, choice=choice))
+        loaded, loaded_choice = timed(
+            "load_s", lambda: artifacts.load_program(tmp, expect=A))
+    check(loaded_choice.to_json() == choice.to_json(),
+          "planner: the reloaded PlanChoice differs")
+
+    rng = np.random.default_rng(seed)
+    xs = [rng.standard_normal(A.ncols) for _ in range(4)] + \
+        [rng.standard_normal((A.ncols, 8))]
+
+    def answers(program):
+        fn = P.make_program_spmv_fn(program, device=device)
+        xo = [x if program.perm is None else P._apply_perm(x, program.perm)
+              for x in xs]
+        return [fn(torch.from_numpy(program.x_to_device(
+            x.astype(np.float32))).to(device)) for x in xo]
+
+    for label, got, want in (
+            ("relower", prog2, P.lower(A, plan2)),
+            ("reload", loaded, prog)):
+        ys, ws = answers(got), answers(want)
+        equal = all(torch.equal(y, w) for y, w in zip(ys, ws))
+        check(equal, f"planner: the {label}ed program's answers differ on "
+                     f"the card")
+        out[f"{label}_bitwise"] = equal
+        out[f"{label}_max_scaled_err"] = answers_error(
+            f"planner/{label}", A, xs,
+            [P.gather_b(got, y).astype(np.float64) for y in ys])
+    return choice, out
 
 
 def run_program(torch, label, A, plan, singles, block, device) -> dict:
@@ -796,9 +898,19 @@ def main(argv=None) -> int:
                       "ptxas": [ln.strip() for ln in _lib.build_info.get(
                           "ptxas", "").splitlines() if "Used" in ln]}))
 
+    from repro_torch.data import matrices as mats
+
+    t0 = time.perf_counter()
+    cop = mats.make_matrix("cop20k_A")
+    cop_s = time.perf_counter() - t0
+    # its own generator, so the later phases' inputs stay as they were
+    choice, planner = planner_phase(torch, cop, device, args.seed + 1)
+    planner["matrix_s"] = cop_s
+    print(json.dumps({"planner": planner}))
+
     rng = np.random.default_rng(args.seed)
     results, totals, matrices = {}, {name: 0 for name in _lib.KERNELS}, {}
-    for label, build, plans in phases():
+    for label, build, plans in phases(cop, choice.plan):
         t0 = time.perf_counter()
         A = build()
         gen_s = time.perf_counter() - t0

@@ -48,6 +48,23 @@ class Partition:
         """(M,) shard id owning each row."""
         return np.searchsorted(self.starts, np.arange(M), side="right") - 1
 
+    def thread_splits(self, csr: CSRMatrix,
+                      threads_per_shard: int) -> list[np.ndarray]:
+        """Sub-split each shard's rows among the Emu model's worker threads:
+        equal rows per thread under the row strategy, ~equal non-zeros per
+        thread under the non-zero one."""
+        out = []
+        for p in range(self.num_shards):
+            r0, r1 = int(self.starts[p]), int(self.starts[p + 1])
+            sub = csr.row_slice(r0, r1)
+            if self.strategy == "row":
+                t_starts = _even_row_starts(r1 - r0, threads_per_shard) + r0
+            else:
+                t = partition_nonzeros(sub, threads_per_shard)
+                t_starts = t.starts + r0
+            out.append(t_starts.astype(np.int64))
+        return out
+
 
 def _even_row_starts(M: int, P: int) -> np.ndarray:
     base, rem = divmod(M, P)

@@ -7,9 +7,12 @@ Counterpart of ``repro.core.program``:
   accounting, one :class:`ShardStage` per shard in its kernel family);
   :func:`program_from_arrays` builds the same program from the host
   arrays of an already reordered and partitioned matrix.
+* :func:`relower` rebuilds only the stages whose kernel (or effective
+  split count) changed, sharing every other stage with the old program.
 * :func:`execute` runs it: ``backend="numpy"`` is the exact float64 host
   oracle, ``backend="device"`` the executor of
-  :func:`make_program_spmv_fn`.
+  :func:`make_program_spmv_fn`, ``backend="emu"`` the Emu timeline probe
+  (:func:`probe_program`).
 
 The device executor keeps all S shards on one device.  The exchange
 prologue becomes one index gather that builds each shard's
@@ -28,6 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .emu import EmuConfig, EmuResult, run_spmv
 from .layout import VectorLayout, make_layout
 from .migration import TrafficReport, count_migrations, remote_access_matrix
 from .partition import Partition, make_partition
@@ -39,19 +43,13 @@ from .spmv import PLAN_KERNELS, SpmvPlan
 from ..kernels import ops as kops
 from ..kernels.ops import resolve_device
 
-__all__ = ["ShardStage", "SpmvProgram", "lower", "program_from_arrays",
-           "resolve_device",
-           "execute", "make_program_spmv_fn", "gather_b", "PROGRAM_KERNELS"]
+__all__ = ["ShardStage", "SpmvProgram", "lower", "relower",
+           "program_from_arrays", "resolve_device", "execute",
+           "make_program_spmv_fn", "probe_program", "gather_b",
+           "PROGRAM_KERNELS"]
 
 #: Kernels a shard stage may select; a stage's kernel id is its index.
 PROGRAM_KERNELS = PLAN_KERNELS
-
-
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with a later slice of the "
-        f"port (the planner, Emu and serving slices); the reference has it "
-        f"in repro.core.program")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,7 +143,10 @@ class SpmvProgram:
 
 
 def _legacy_view(self):
-    raise _later("the legacy stacked-slab views (data/cols/seg_*)")
+    raise NotImplementedError(
+        "the legacy stacked-slab views (data/cols/seg_*) are not ported yet: "
+        "the port's executor builds its own S-stacked operands (see "
+        "_device_operands); the reference has them in repro.core.program")
 
 
 for _name in ("data", "cols", "seg_vals", "seg_cols", "seg_rows",
@@ -208,8 +209,50 @@ def lower(csr: CSRMatrix, plan: SpmvPlan) -> SpmvProgram:
                                starts=part.starts, plan=plan, perm=perm)
 
 
+#: Plan fields that force a full :func:`lower` when they change.  The
+#: exchange (uniform or per-shard) is not one of them: stages, partition
+#: and traffic accounting do not depend on it; the executor's operands are
+#: rebuilt per program object.
+_BASE_FIELDS = ("layout", "distribution", "reordering", "num_shards", "seed")
+
+
 def relower(program: SpmvProgram, new_plan: SpmvPlan) -> SpmvProgram:
-    raise _later("relower (the rebalancer's per-shard swap)")
+    """Re-lower only the stages whose kernel (or effective split count)
+    changed, keeping the same base.
+
+    The base (layout / distribution / reordering / shards / seed) must
+    match the incumbent plan (``ValueError`` otherwise); matrix,
+    partition, layouts and traffic are shared, and unchanged stages are
+    the *same objects* as the old program's.  An exchange-only change
+    shares every stage.
+    """
+    old_plan = program.plan
+    for f in _BASE_FIELDS:
+        if getattr(new_plan, f) != getattr(old_plan, f):
+            raise ValueError(
+                f"relower only changes shard kernels; base field {f!r} "
+                f"differs ({getattr(old_plan, f)!r} -> "
+                f"{getattr(new_plan, f)!r}) — use lower()")
+    old_k = old_plan.resolved_shard_kernels()
+    new_k = new_plan.resolved_shard_kernels()
+    new_sc = new_plan.resolved_split_counts()
+
+    def unchanged(p: int) -> bool:
+        if new_k[p] != old_k[p]:
+            return False
+        if new_k[p] != "split":
+            return True
+        # a split request that clamps to the same effective NS shares too
+        want = _resolved_split_count(program.matrix, program.partition, p,
+                                     new_sc[p])
+        return program.stages[p].split.num_splits == want
+
+    stages = tuple(
+        program.stages[p] if unchanged(p)
+        else _build_stage(program.matrix, program.partition, p, new_k[p],
+                          new_sc[p])
+        for p in range(new_plan.num_shards))
+    return dataclasses.replace(program, plan=new_plan, stages=stages)
 
 
 # --------------------------------------------------------------------------
@@ -731,17 +774,31 @@ def gather_b(program: SpmvProgram, y_shards) -> np.ndarray:
     return out if program.perm is None else out[program.perm]
 
 
+def probe_program(program: SpmvProgram, *, emu: EmuConfig | None = None,
+                  engine: str = "vectorized") -> EmuResult:
+    """Run the Emu timeline simulator on the program's (matrix, partition,
+    layout) walk: the migratory-thread cost of the same plan the other
+    backends execute (host, numpy or the compiled tick kernel)."""
+    emu = emu or EmuConfig(nodelets=program.plan.num_shards)
+    return run_spmv(program.matrix, program.partition, program.x_layout,
+                    emu, engine=engine)
+
+
 def execute(program: SpmvProgram, x: np.ndarray | None = None, *,
-            backend: str = "numpy", device="cuda", pipeline: bool = True):
+            backend: str = "numpy", device="cuda", pipeline: bool = True,
+            emu: EmuConfig | None = None, engine: str = "vectorized"):
     """Execute a lowered program; returns y in the caller's order, (M,) or
     (M, B).
 
     * ``backend="numpy"``: the exact float64 host oracle.
     * ``backend="device"``: the executor of :func:`make_program_spmv_fn`
       on ``device`` (CUDA unless ``device="cpu"``), float32.
+    * ``backend="emu"``: ignores ``x`` and returns the
+      :class:`~repro_torch.core.emu.EmuResult` of :func:`probe_program`
+      (``emu`` and ``engine`` go to it).
     """
     if backend == "emu":
-        raise _later("the 'emu' backend (the Emu timeline probe)")
+        return probe_program(program, emu=emu, engine=engine)
     if x is None:
         raise ValueError(f"backend {backend!r} needs an input vector x")
     if backend == "numpy":
@@ -753,4 +810,4 @@ def execute(program: SpmvProgram, x: np.ndarray | None = None, *,
             xp = _apply_perm(xp, program.perm)
         return gather_b(program, fn(program.x_to_device(xp)))
     raise ValueError(f"unknown executor backend {backend!r}; expected "
-                     f"'numpy' or 'device'")
+                     f"'numpy', 'device' or 'emu'")

@@ -1,9 +1,12 @@
 """The SpMV plan: layout x distribution x reordering x exchange x kernel.
 
-Host copy of ``repro.core.spmv.SpmvPlan`` and its spellings, and of the
-warn-once helper of the deprecated shims.  The plan is given explicitly
-in this port: the autotuner (``SpmvPlan.auto``) is not ported yet and
-raises.
+Host copy of ``repro.core.spmv.SpmvPlan`` and its spellings, of the
+warn-once helper of the deprecated shims, and of the pre-IR aliases
+``build_distributed`` (``lower``), ``local_spmv`` (the numpy executor),
+``lower_with_exchange`` and ``DistributedSpmv`` (``SpmvProgram``).
+``SpmvPlan.auto`` runs the autotuner of :mod:`repro_torch.core.plan`.
+The deprecated ``make_*_fn`` shims and ``build_halo`` are not carried
+over: they need the legacy stacked-slab views.
 """
 from __future__ import annotations
 
@@ -11,7 +14,12 @@ import dataclasses
 import warnings
 from typing import Literal
 
-__all__ = ["PLAN_KERNELS", "PLAN_EXCHANGES", "SpmvPlan"]
+import numpy as np
+
+from .sparse_matrix import CSRMatrix
+
+__all__ = ["PLAN_KERNELS", "PLAN_EXCHANGES", "SpmvPlan", "DistributedSpmv",
+           "build_distributed", "local_spmv", "lower_with_exchange"]
 
 #: Kernel spellings a plan accepts, in the reference's order; a shard's
 #: kernel id is its index here.
@@ -86,11 +94,14 @@ class SpmvPlan:
         return self._per_shard("split_counts", self.split_counts, 0)
 
     @classmethod
-    def auto(cls, csr, **kwargs) -> "SpmvPlan":
-        raise NotImplementedError(
-            "SpmvPlan.auto needs the autotuner (plan.autotune, the cost "
-            "oracle and the Emu probe), which a later port slice brings; "
-            "pass an explicit SpmvPlan")
+    def auto(cls, csr: CSRMatrix, *, num_shards: int = 8, seed: int = 0,
+             probe: int | str | None = None, **grid) -> "SpmvPlan":
+        """Pick a plan for ``csr`` with the cost-model autotuner: a thin
+        wrapper over :func:`repro_torch.core.plan.autotune` (which see for
+        the grid and ``probe``) that returns only the winning plan."""
+        from .plan import autotune
+        return autotune(csr, num_shards=num_shards, seed=seed, probe=probe,
+                        **grid).plan
 
 
 #: Shims that already warned this process: each deprecated shim emits its
@@ -105,3 +116,31 @@ def _warn_deprecated(name: str, replacement: str) -> None:
     warnings.warn(
         f"{name} is deprecated; use {replacement} instead",
         DeprecationWarning, stacklevel=3)
+
+
+def build_distributed(csr: CSRMatrix, plan: SpmvPlan):
+    """Deprecated alias of :func:`repro_torch.core.program.lower`."""
+    from .program import lower
+    return lower(csr, plan)
+
+
+def local_spmv(dist, x: np.ndarray) -> np.ndarray:
+    """Single-host execution of a lowered program: y = A @ x in the
+    caller's order, float64; alias of ``execute(dist, x,
+    backend="numpy")``.  ``x`` is (N,) or (N, B)."""
+    from .program import execute
+    return execute(dist, x, backend="numpy")
+
+
+def lower_with_exchange(program, new_plan: SpmvPlan):
+    """Clone a program under a different exchange (same base otherwise):
+    the exchange only changes the executor's prologue, so every stage and
+    accounting object is shared with the source program."""
+    return dataclasses.replace(program, plan=new_plan)
+
+
+def __getattr__(name):
+    if name == "DistributedSpmv":       # deprecated alias of the program IR
+        from .program import SpmvProgram
+        return SpmvProgram
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

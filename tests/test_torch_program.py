@@ -125,11 +125,9 @@ def test_executor_shapes_and_unported_paths():
         (2, run.rows_out, 5)
     with pytest.raises(ValueError):
         run(np.zeros((3, per), np.float32))
-    with pytest.raises(NotImplementedError):
-        t_program.execute(tp, backend="emu")
-    with pytest.raises(NotImplementedError):
-        t_program.relower(tp, tp.plan)
-    with pytest.raises(NotImplementedError):
-        TPlan.auto(tp.matrix)
+    assert t_program.execute(tp, backend="emu").ticks > 0
+    assert all(a is b for a, b in zip(t_program.relower(tp, tp.plan).stages,
+                                      tp.stages))
+    assert isinstance(TPlan.auto(tp.matrix, num_shards=2, probe=0), TPlan)
     with pytest.raises(NotImplementedError):
         tp.seg_vals
