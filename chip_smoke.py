@@ -5,9 +5,10 @@
 
 Builds the CUDA kernels from ``src/repro_torch/csrc``, then runs a
 ``planner`` phase on the host, three phases through the executor's entry
-points (``lower``, ``make_program_spmv_fn``, ``gather_b``) and a
+points (``lower``, ``make_program_spmv_fn``, ``gather_b``), a
 ``kernel_api`` phase through the per-format kernel API
-(``repro_torch.kernels``):
+(``repro_torch.kernels``) and a ``serving`` phase through the router
+(``repro_torch.serve``):
 
 * ``planner``: ``autotune(make_matrix("cop20k_A"), num_shards=8)`` at
   the full Table-I size (120,000 rows) with the default probe must pick
@@ -18,7 +19,8 @@ points (``lower``, ``make_program_spmv_fn``, ``gather_b``) and a
   bitwise as ``lower`` of that plan does; a program saved with
   ``save_program`` and read back with ``load_program`` must answer on
   the card bitwise as the original.  Both pass the |A|·|x|-scaled
-  check below.  Prints one ``{"planner": ...}`` line of host seconds;
+  check below.  Prints one ``{"planner": ...}`` line of host seconds.
+  The bundle stays for the serving phase;
 * ``cop20k_A``: the same matrix under the autotuner's choice (so the
   main path runs host CSR -> ``autotune`` -> ``lower`` -> the kernels)
   and under ``cyclic/allgather/ell``;
@@ -37,7 +39,29 @@ points (``lower``, ``make_program_spmv_fn``, ``gather_b``) and a
   deprecated ``bell_spmv`` / ``bell_spmm`` on ``csr_to_bcsr`` of a
   smaller ``blocked_band(16384, 32·16384)`` with (8, 128) blocks: the
   padded Block-ELL slab grows with the widest block row (59 blocks here,
-  495 MB), so the shim runs at an eighth of the rows.
+  495 MB), so the shim runs at an eighth of the rows;
+* ``serving``: one ``SparseMatrixEngine(num_shards=8)`` on the card with
+  micro-batches of up to 8 requests (2 ms linger) and three tenants at
+  the sizes above: cop20k_A warm-started from the planner's bundle
+  (``warm_start`` checked: no second autotune), blocked_band under its
+  mixed plan and powerlaw_tail under ``split``, so requests reach
+  ``ell_spmv``, ``seg_psum``, the fix-up, ``split_combine`` and
+  ``tile_contrib`` through graph-replayed executors.  8 client threads
+  send 32 single vectors each, round-robin over the tenants (x from a
+  seeded generator), then one (N, 8) block per tenant.  Every answer
+  must be within the |A|·|x|-scaled 2e-4 of a float64 product (held to
+  ``csr_matvec``), bitwise the tenant's solo call and bitwise an eager
+  executor's (``graphs=False``) on the same program.  A second engine
+  (4 shards, ``make_matrix("cop20k_A", scale=0.005)``) takes
+  ``tests/test_rebalance.py``'s drifting stream and must swap a program
+  in, served by its own executor and passing the same check.  Prints one
+  ``{"serving": ...}`` line: per tenant p50/p99 wall ms per request
+  (host included), set-up seconds (operand upload plus captures), graph
+  shapes held and their device memory; requests/s over the threaded
+  stream, micro-batch sizes, swaps, one thread's solo-call p50 and the
+  wall ms of a batch's host steps at B = 1, 3, 8 (``host_path_ms``).
+  Its launch counts are the warm-up calls and captures (replays launch
+  uncounted) and stay out of the kernels line.
 
 Each program or API call answers four single vectors and one (N, 8)
 block with the launch counts zeroed just before and read just after,
@@ -60,8 +84,10 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -450,16 +476,15 @@ def answers_error(label, A, xs, ys) -> float:
     return err
 
 
-def planner_phase(torch, A, device, seed) -> tuple:
+def planner_phase(torch, A, device, seed, bundle) -> tuple:
     """The host layer on the full-size cop20k_A: ``autotune`` with the
     default probe must pick :data:`COP20K_PLAN`; the Emu backend's
     ``cext`` and ``numpy`` engines must agree; ``relower`` to a plan with
     shards 0 and 1 on ``ell`` must share stages 2-7 and answer on the card
-    bitwise as ``lower`` of that plan does; and a saved and reloaded
-    program must answer on the card bitwise as the original.  Returns
+    bitwise as ``lower`` of that plan does; and a program saved to
+    ``bundle`` and reloaded must answer on the card bitwise as the
+    original (the serving phase warm-starts from that bundle).  Returns
     the choice and the phase's summary (host seconds)."""
-    import tempfile
-
     from repro_torch.core import _emu_cext, artifacts, program as P
     from repro_torch.core.plan import autotune
     from repro_torch.core.spmv import SpmvPlan
@@ -499,11 +524,10 @@ def planner_phase(torch, A, device, seed) -> tuple:
     check(out["relower_shares_2_to_7"]
           and prog2.shard_kernels()[:2] == ("ell", "ell"),
           "planner: relower shared or rebuilt the wrong stages")
-    with tempfile.TemporaryDirectory() as tmp:
-        timed("save_s", lambda: artifacts.save_program(
-            prog, tmp, source=A, choice=choice))
-        loaded, loaded_choice = timed(
-            "load_s", lambda: artifacts.load_program(tmp, expect=A))
+    timed("save_s", lambda: artifacts.save_program(
+        prog, bundle, source=A, choice=choice))
+    loaded, loaded_choice = timed(
+        "load_s", lambda: artifacts.load_program(bundle, expect=A))
     check(loaded_choice.to_json() == choice.to_json(),
           "planner: the reloaded PlanChoice differs")
 
@@ -767,9 +791,10 @@ def api_record(torch, label, wrapper, a, kw) -> dict:
 
 def api_cases(torch, matrices, device):
     """(label, matrix, call) for the kernel_api phase, one at a time: each
-    format is built on the host and its arrays moved to the card once;
-    ``call(x)`` then runs the API on them for x (N,) or (N, B) on the
-    card."""
+    format is built on the host and its arrays moved to the card once (a
+    SegMatrix, SplitMatrix or TileMatrix by its first call, which keeps
+    them with its piece table); ``call(x)`` then runs the API on them for
+    x (N,) or (N, B) on the card."""
     from repro_torch.core.sparse_matrix import csr_to_bcsr, csr_to_ell
     from repro_torch.data import matrices as mats
     from repro_torch.kernels import ops
@@ -783,26 +808,17 @@ def api_cases(torch, matrices, device):
                              ("api/split64", 64, ops.SEG_CHUNK),
                              ("api/split64_4096", 64, 4096)):
         spl = ops.split_from_csr(tail, ns, chunk=chunk)
-        arrays = card(spl.vals, spl.cols, spl.rows, spl.piece_split,
-                      spl.piece_chunk, spl.piece_lo, spl.piece_hi,
-                      spl.piece_row)
-        yield label, tail, lambda x, a=arrays: ops.split_spmv(
-            a, x, num_rows=tail.nrows, device=device)
+        yield label, tail, lambda x, spl=spl: ops.split_spmv(
+            spl, x, device=device)
     band = matrices["blocked_band"]
     for label, bm, bn in (("api/tile", 8, 128), ("api/tile16x64", 16, 64)):
         t = ops.tile_from_csr(band, bm=bm, bn=bn)
-        data, tcols, tptr, tmask = card(t.data, t.tile_cols, t.tile_ptr,
-                                        t.mask)
-        t = dataclasses.replace(t, data=data, tile_cols=tcols, tile_ptr=tptr,
-                                mask=tmask)
         yield label, band, lambda x, t=t: ops.tile_spmv(t, x, device=device)
     cop = matrices["cop20k_A"]
     for label, chunk in (("api/seg", ops.SEG_CHUNK), ("api/seg2048", 2048)):
         seg = ops.seg_from_csr(cop, chunk=chunk)
-        arrays = card(seg.vals, seg.cols, seg.rows, seg.piece_chunk,
-                      seg.piece_lo, seg.piece_hi, seg.piece_row)
-        yield label, cop, lambda x, a=arrays: ops.seg_spmv(
-            a, x, num_rows=cop.nrows, device=device)
+        yield label, cop, lambda x, seg=seg: ops.seg_spmv(
+            seg, x, device=device)
     hyb = card(*(getattr(ops.hyb_from_csr(cop), f) for f in (
         "data", "cols", "overflow_rows", "overflow_cols", "overflow_vals")))
     yield "api/hyb", cop, lambda x: ops.hyb_spmv(*hyb, x, device=device)
@@ -875,6 +891,260 @@ def run_api_call(torch, label, A, call, singles, block, device) -> dict:
                 launches=launches, kernels=kernels, kernels_b8=kernels_b8)
 
 
+#: The kernels the serving phase must reach through the router.
+SERVING_KERNELS = ("ell_spmv", "seg_psum", "seg_fixup", "split_combine",
+                   "tile_contrib")
+CLIENTS, REQUESTS_PER_CLIENT = 8, 32
+
+
+def f64_oracle(torch, A, X, device):
+    """(A @ X, |A| @ |X|) in float64 for an (N, k) block, on the card: a
+    float64 CSR product stands in for ``csr_matvec`` at serving volume,
+    and is held to it on the block's first column."""
+    from repro_torch.core.sparse_matrix import csr_matvec
+
+    warnings.filterwarnings("ignore", message="Sparse")
+
+    def prod(vals, x):
+        M = torch.sparse_csr_tensor(
+            torch.from_numpy(A.row_ptr.astype(np.int64)),
+            torch.from_numpy(A.col_index.astype(np.int64)),
+            torch.from_numpy(vals.astype(np.float64)), size=A.shape,
+            device=device)
+        return torch.sparse.mm(M, torch.from_numpy(x).to(device)).cpu() \
+            .numpy()
+    y, scale = prod(A.values, X), prod(np.abs(A.values), np.abs(X))
+    want = csr_matvec(A, X[:, 0])
+    check(np.abs(y[:, 0] - want).max() <= 1e-9 * (1.0 + scale[:, 0].max()),
+          "serving: the float64 oracle disagrees with csr_matvec")
+    return y, scale
+
+
+def scaled_error(torch, label, A, xs, ys, device) -> float:
+    """The largest |A|·|x|-scaled error of the answers ``ys`` to ``xs``
+    (vectors, or (N, B) blocks), checked against :data:`E2E_TOL`."""
+    X = np.concatenate([x.reshape(A.ncols, -1) for x in xs], axis=1)
+    Y = np.concatenate([y.reshape(A.nrows, -1) for y in ys], axis=1)
+    check(Y.shape == (A.nrows, X.shape[1]) and np.isfinite(Y).all(),
+          f"{label}: answers of shape {Y.shape} or non-finite")
+    err = 0.0
+    for c in range(0, X.shape[1], 64):
+        want, scale = f64_oracle(torch, A, X[:, c:c + 64], device)
+        ratio = np.abs(Y[:, c:c + 64] - want) / (1.0 + scale)
+        check(np.isfinite(ratio).all(),
+              f"{label}: {int((~np.isfinite(want)).sum())} non-finite "
+              f"oracle entries, {int((~np.isfinite(scale)).sum())} scales")
+        err = max(err, float(ratio.max()))
+    check(err <= E2E_TOL, f"{label}: scaled error {err} > {E2E_TOL}")
+    return err
+
+
+def host_path_ms(torch, run, xs, iters: int = 10) -> dict:
+    """One thread's wall ms for the steps of a served batch of the vectors
+    ``xs`` (what the micro-batcher and ``device_spmv`` do): ``stack`` (the
+    batcher's (N, B) block), ``permute`` (float32, into the program's
+    order, to the (S, per, B) layout), ``run`` (x copied in, the graph
+    replayed, y copied out on the card, synchronised) and ``gather`` (y
+    to the host and into the caller's order)."""
+    from repro_torch.core import program as P
+
+    prog = run.program
+    parts = dict(stack=0.0, permute=0.0, run=0.0, gather=0.0)
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        X = np.stack(xs, axis=1)
+        t1 = time.perf_counter()
+        xp = X.astype(np.float32)
+        if prog.perm is not None:
+            xp = P._apply_perm(xp, prog.perm)
+        xs_dev = prog.x_to_device(xp)
+        t2 = time.perf_counter()
+        y = run(xs_dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        P.gather_b(prog, y)
+        t4 = time.perf_counter()
+        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            parts[key] += dt * 1e3 / iters
+    return parts
+
+
+def drift_request(rng, N, k, cols=None):
+    """One request of ``tests/test_rebalance.py``'s drifting stream: k
+    random entries of x, anywhere or among ``cols``."""
+    x = np.zeros(N)
+    idx = rng.integers(0, N, k) if cols is None else rng.choice(cols, size=k)
+    x[idx] = rng.standard_normal(k)
+    return x
+
+
+def serving_phase(torch, matrices, tenant_plans, artifact_dir, device,
+                  seed) -> dict:
+    """``repro_torch.serve`` on the card: three tenants behind one
+    micro-batching engine (cop20k_A warm-started from the planner phase's
+    bundle), 8 client threads of 32 single-vector requests each,
+    round-robin over the tenants, then one (N, 8) block per tenant; every
+    answer within the scaled tolerance, bitwise the tenant's solo call
+    and an eager executor's on the same program.  Then one rebalance
+    swap on a second engine, at ``tests/test_rebalance.py``'s size.
+    Launch counts here are the executors' warm-up calls and captures:
+    graph replays launch without counting."""
+    import threading
+
+    from repro_torch.core import program as P
+    from repro_torch.data import matrices as mats
+    from repro_torch.kernels import _lib
+    from repro_torch.serve import MicroBatchConfig, RebalanceConfig, \
+        SparseMatrixEngine
+
+    out = {}
+    eng = SparseMatrixEngine(num_shards=8, artifact_dir=artifact_dir,
+                             micro_batch=MicroBatchConfig(max_batch=8,
+                                                          max_wait_ms=2.0),
+                             device=device)
+    names = list(tenant_plans)
+    tenants = {}
+    torch.cuda.synchronize()
+    # -- the serving path, ingest (executors built, micro-batch shapes
+    # captured) to the last answer: counts zeroed just before, read just
+    # after -------------------------------------------------------------------
+    _lib.reset_launch_counts()
+    for name in names:
+        t0 = time.perf_counter()
+        eng.ingest(name, matrices[name], plan=tenant_plans[name])
+        tenants[name] = {"ingest_s": time.perf_counter() - t0}
+    stats = eng.stats()
+    check(stats["cop20k_A"]["warm_start"] and eng.warm_starts == 1,
+          "serving: cop20k_A did not warm-start from the planner's bundle")
+
+    rng = np.random.default_rng(seed)
+    work = [[(names[(c + i) % len(names)],
+              rng.standard_normal(matrices[names[(c + i) % len(names)]]
+                                  .ncols))
+             for i in range(REQUESTS_PER_CLIENT)] for c in range(CLIENTS)]
+    answers = [[None] * REQUESTS_PER_CLIENT for _ in range(CLIENTS)]
+    walls = [[0.0] * REQUESTS_PER_CLIENT for _ in range(CLIENTS)]
+    errors = []
+    barrier = threading.Barrier(CLIENTS + 1)
+
+    def client(c):
+        try:
+            barrier.wait(timeout=60)
+            for i, (name, x) in enumerate(work[c]):
+                t0 = time.perf_counter()
+                answers[c][i] = eng.spmv(name, x)
+                walls[c][i] = time.perf_counter() - t0
+        except BaseException as err:     # reported after the join
+            errors.append(err)
+            raise
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(CLIENTS)]
+    for t in threads:
+        t.start()
+    barrier.wait(timeout=60)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=300)
+    stream_s = time.perf_counter() - t0
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"serving: a client failed or hung: {errors}")
+    blocks = {name: rng.standard_normal((matrices[name].ncols, 8))
+              for name in names}
+    block_answers = {name: eng.spmv(name, X) for name, X in blocks.items()}
+    torch.cuda.synchronize()
+    launches = dict(_lib.launch_counts)
+    for name in SERVING_KERNELS:
+        check(launches[name] > 0, f"serving: {name} was never reached")
+    out["launches"] = launches
+    out["requests_per_s"] = CLIENTS * REQUESTS_PER_CLIENT / stream_s
+    out["stream_s"] = stream_s
+
+    # -- checks ----------------------------------------------------------------
+    stats = eng.stats()
+    for name in names:
+        A = matrices[name]
+        idx = [(c, i) for c in range(CLIENTS)
+               for i in range(REQUESTS_PER_CLIENT) if work[c][i][0] == name]
+        xs = [work[c][i][1] for c, i in idx]
+        ys = [answers[c][i] for c, i in idx]
+        m = eng._matrices[name]
+        eager = P.make_program_spmv_fn(m.dist, device=device)
+        solo, solo_ms = [], []
+        for x in xs:
+            t0 = time.perf_counter()
+            solo.append(eng.spmv(name, x))
+            solo_ms.append((time.perf_counter() - t0) * 1e3)
+        check(all(np.array_equal(y, z) for y, z in zip(ys, solo)),
+              f"serving/{name}: a micro-batched answer differs from the "
+              f"solo call")
+        check(all(np.array_equal(y, P.device_spmv(eager, x))
+                  for x, y in zip(xs, ys)),
+              f"serving/{name}: a replayed answer differs from the eager "
+              f"executor")
+        check(np.array_equal(block_answers[name],
+                             P.device_spmv(eager, blocks[name])),
+              f"serving/{name}: the replayed block differs from the eager "
+              f"executor")
+        err = scaled_error(torch, f"serving/{name}", A,
+                           xs + [blocks[name]], ys + [block_answers[name]],
+                           device)
+        w = np.array([walls[c][i] for c, i in idx]) * 1e3
+        ex = stats[name]["executor"]
+        mb = stats[name]["micro_batch"]
+        tenants[name].update(
+            requests=len(idx), p50_ms=float(np.percentile(w, 50)),
+            p99_ms=float(np.percentile(w, 99)), max_ms=float(w.max()),
+            build_s=ex["build_s"],
+            capture_s=sum(g["capture_s"] for g in ex["graphs"]),
+            setup_s=ex["build_s"] + sum(g["capture_s"] for g in ex["graphs"]),
+            graphs=len(ex["graphs"]),
+            graph_bytes=sum(g["bytes"] for g in ex["graphs"]),
+            replays=sum(g["replays"] for g in ex["graphs"]),
+            solo_p50_ms=float(np.median(solo_ms)),
+            host_path_ms={f"B={b}": host_path_ms(torch, m.executor, xs[:b])
+                          for b in (1, 3, 8)},
+            mean_batch=mb["requests"] / max(mb["batches"], 1),
+            widest=mb["widest"], max_scaled_err=err,
+            shard_kernels=stats[name]["shard_kernels"],
+            warm_start=stats[name]["warm_start"])
+    out["tenants"] = tenants
+    out["graph_bytes"] = sum(t["graph_bytes"] for t in tenants.values())
+    out["mean_batch"] = float(np.mean([t["mean_batch"]
+                                       for t in tenants.values()]))
+    del eng
+
+    # -- one rebalance swap, at tests/test_rebalance.py's size -----------------
+    A = mats.make_matrix("cop20k_A", scale=0.005)
+    cfg = RebalanceConfig(window=32, patience=2, cooldown=2, probe=2)
+    eng = SparseMatrixEngine(num_shards=4, rebalance=cfg, device=device)
+    eng.ingest("a", A)
+    m = eng._matrices["a"]
+    first = m.executor
+    d = m.dist
+    order = np.arange(A.ncols) if d.perm is None else d.perm
+    hot = np.flatnonzero(d.x_layout.owner_of(order) == 0)
+    rng = np.random.default_rng(0)
+    k = max(A.ncols // 20, 8)
+    xs = [drift_request(rng, A.ncols, k) for _ in range(2 * cfg.window)] + \
+        [drift_request(rng, A.ncols, k, hot) for _ in range(10 * cfg.window)]
+    ys, after = [], []
+    for x in xs:
+        ys.append(eng.spmv("a", x))
+        if any(e.swapped for e in m.rebalance_log):
+            after.append(m.executor.program is m.dist)
+    swaps = sum(e.swapped for e in m.rebalance_log)
+    check(swaps >= 1 and after and all(after) and m.executor is not first,
+          "serving: the drifting stream swapped no program in, or the new "
+          "program is not served by its own executor")
+    out["swap"] = dict(
+        swaps=swaps, trips=m.monitor.trips, requests_after_swap=len(after),
+        new_plan=dataclasses.asdict(eng.plan("a")),
+        max_scaled_err=scaled_error(torch, "serving/swap", A, xs, ys,
+                                    device))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -898,19 +1168,30 @@ def main(argv=None) -> int:
                       "ptxas": [ln.strip() for ln in _lib.build_info.get(
                           "ptxas", "").splitlines() if "Used" in ln]}))
 
+    with tempfile.TemporaryDirectory() as artifact_dir:
+        return run_phases(torch, device, args.seed, artifact_dir)
+
+
+def run_phases(torch, device, seed, artifact_dir) -> int:
     from repro_torch.data import matrices as mats
+    from repro_torch.kernels import _lib
 
     t0 = time.perf_counter()
     cop = mats.make_matrix("cop20k_A")
     cop_s = time.perf_counter() - t0
     # its own generator, so the later phases' inputs stay as they were
-    choice, planner = planner_phase(torch, cop, device, args.seed + 1)
+    choice, planner = planner_phase(torch, cop, device, seed + 1,
+                                    os.path.join(artifact_dir, "cop20k_A"))
     planner["matrix_s"] = cop_s
     print(json.dumps({"planner": planner}))
 
-    rng = np.random.default_rng(args.seed)
+    rng = np.random.default_rng(seed)
     results, totals, matrices = {}, {name: 0 for name in _lib.KERNELS}, {}
+    tenant_plans = {}
     for label, build, plans in phases(cop, choice.plan):
+        # the serving phase's tenants: cop20k_A warm from the planner's
+        # bundle, the others under their phase's (first) plan
+        tenant_plans[label] = None if label == "cop20k_A" else plans[0][1]
         t0 = time.perf_counter()
         A = build()
         gen_s = time.perf_counter() - t0
@@ -936,6 +1217,13 @@ def main(argv=None) -> int:
         for name, count in r["launches"].items():
             totals[name] += count
         print(json.dumps(r))
+    # serving through the router; its launches (warm-ups and captures) are
+    # its own and stay out of the kernels line
+    t0 = time.perf_counter()
+    serving = serving_phase(torch, matrices, tenant_plans, artifact_dir,
+                            device, seed + 2)
+    serving["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"serving": serving}))
     summary = []
     for name in _lib.KERNELS:
         check(totals[name] > 0, f"{name} was never launched on the main path")

@@ -86,16 +86,24 @@ def count_migrations(csr: CSRMatrix, part: Partition, x_layout: VectorLayout,
 
 
 def remote_access_matrix(csr: CSRMatrix, part: Partition,
-                         x_layout: VectorLayout) -> np.ndarray:
-    """(P, P) int64 matrix T where T[p, q] = x loads shard p issues into
-    shard q (off-diagonal mass is exchange traffic)."""
+                         x_layout: VectorLayout,
+                         col_weight: np.ndarray | None = None) -> np.ndarray:
+    """(P, P) matrix T where T[p, q] = x loads shard p issues into shard q
+    (off-diagonal mass is exchange traffic).  With ``col_weight``
+    (per-column activity, this matrix's index order) each load counts its
+    column's weight instead of 1 (float64; unweighted stays exact int64)."""
     P = part.num_shards
     M = csr.nrows
     rows = np.repeat(np.arange(M), csr_row_nnz(csr))
     home_of_nnz = part.owner_of_rows(M)[rows]
     owners = x_layout.owner_of(csr.col_index)
-    T = np.zeros((P, P), dtype=np.int64)
-    np.add.at(T, (home_of_nnz, owners), 1)
+    if col_weight is None:
+        T = np.zeros((P, P), dtype=np.int64)
+        np.add.at(T, (home_of_nnz, owners), 1)
+    else:
+        T = np.zeros((P, P), dtype=np.float64)
+        np.add.at(T, (home_of_nnz, owners),
+                  np.asarray(col_weight, dtype=np.float64)[csr.col_index])
     return T
 
 

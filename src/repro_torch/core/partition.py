@@ -14,7 +14,7 @@ import dataclasses
 
 import numpy as np
 
-from .sparse_matrix import CSRMatrix
+from .sparse_matrix import CSRMatrix, csr_row_nnz
 
 __all__ = ["Partition", "partition_rows", "partition_nonzeros",
            "make_partition", "nnz_chunk_starts", "DISTRIBUTIONS"]
@@ -78,12 +78,26 @@ def partition_rows(csr: CSRMatrix, num_shards: int) -> Partition:
     return Partition("row", num_shards, _even_row_starts(csr.nrows, num_shards))
 
 
-def partition_nonzeros(csr: CSRMatrix, num_shards: int) -> Partition:
+def partition_nonzeros(csr: CSRMatrix, num_shards: int,
+                       nnz_weight: np.ndarray | None = None) -> Partition:
     """Contiguous row blocks with ~equal non-zeros: a searchsorted over
-    the cumulative nnz curve."""
+    the cumulative nnz curve.  ``nnz_weight`` ((nnz,) float, in
+    stored-entry order) splits by equal *expected work* instead: the
+    curve is the weighted one (a primitive for callers that manage their
+    own partitions; plans stay weight-free)."""
     M = csr.nrows
-    curve = csr.row_ptr[1:].astype(np.float64)
-    total = float(csr.nnz)
+    if nnz_weight is None:
+        curve = csr.row_ptr[1:].astype(np.float64)
+        total = float(csr.nnz)
+    else:
+        w = np.asarray(nnz_weight, dtype=np.float64)
+        if w.shape[0] != csr.nnz:
+            raise ValueError(f"nnz_weight has {w.shape[0]} entries, "
+                             f"matrix stores {csr.nnz}")
+        per_row = np.zeros(M, dtype=np.float64)
+        np.add.at(per_row, np.repeat(np.arange(M), csr_row_nnz(csr)), w)
+        curve = np.cumsum(per_row)
+        total = float(curve[-1]) if M else 0.0
     targets = (np.arange(1, num_shards, dtype=np.float64) * total / num_shards)
     cut = np.searchsorted(curve, targets, side="left") + 1
     starts = np.concatenate([[0], cut, [M]]).astype(np.int64)

@@ -26,7 +26,11 @@ column b of an (N, B) call equals the per-vector call on ``x[:, b]``.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import threading
+import time
 
 import numpy as np
 import torch
@@ -45,8 +49,8 @@ from ..kernels.ops import resolve_device
 
 __all__ = ["ShardStage", "SpmvProgram", "lower", "relower",
            "program_from_arrays", "resolve_device", "execute",
-           "make_program_spmv_fn", "probe_program", "gather_b",
-           "PROGRAM_KERNELS"]
+           "make_program_spmv_fn", "device_spmv", "probe_program",
+           "gather_b", "PROGRAM_KERNELS", "MAX_GRAPHS"]
 
 #: Kernels a shard stage may select; a stage's kernel id is its index.
 PROGRAM_KERNELS = PLAN_KERNELS
@@ -141,17 +145,106 @@ class SpmvProgram:
     def b_from_device(self, b_shards: np.ndarray) -> np.ndarray:
         return self.b_layout.from_sharded(b_shards)
 
+    # -- legacy stacked-slab views (deprecated; read ``stages`` instead).
+    # Host numpy, bitwise the reference's; the executor does not use them.
 
-def _legacy_view(self):
-    raise NotImplementedError(
-        "the legacy stacked-slab views (data/cols/seg_*) are not ported yet: "
-        "the port's executor builds its own S-stacked operands (see "
-        "_device_operands); the reference has them in repro.core.program")
+    @property
+    def data(self) -> np.ndarray:
+        """(S, rows_pad, W) stacked *uncapped* ELL slabs (legacy view)."""
+        return self._ell_stack()[0]
+
+    @property
+    def cols(self) -> np.ndarray:
+        """(S, rows_pad, W) stacked global ELL column ids (legacy view)."""
+        return self._ell_stack()[1]
+
+    def _ell_stack(self):
+        cached = getattr(self, "_ell_stack_cache", None)
+        if cached is not None:
+            return cached
+        slabs = []
+        for st in self.stages:
+            if st.kernel == "ell":
+                slabs.append(st.ell)
+            else:
+                sub = self.matrix.row_slice(st.row_offset,
+                                            st.row_offset + st.rows)
+                slabs.append(csr_to_ell(sub))
+        rows_pad = max(s.data.shape[0] for s in slabs)
+        width = max(s.width for s in slabs)
+        S = self.plan.num_shards
+        data = np.zeros((S, rows_pad, width), dtype=np.float32)
+        cols = np.zeros((S, rows_pad, width), dtype=np.int32)
+        for p, s in enumerate(slabs):
+            r, w = s.data.shape
+            data[p, :r, :w] = s.data
+            cols[p, :r, :w] = s.cols
+        self._ell_stack_cache = (data, cols)
+        return self._ell_stack_cache
+
+    @property
+    def seg_vals(self):
+        s = self._seg_stack()
+        return None if s is None else s["seg_vals"]
+
+    @property
+    def seg_cols(self):
+        s = self._seg_stack()
+        return None if s is None else s["seg_cols"]
+
+    @property
+    def seg_rows(self):
+        s = self._seg_stack()
+        return None if s is None else s["seg_rows"]
+
+    @property
+    def seg_pieces(self):
+        s = self._seg_stack()
+        return None if s is None else s["seg_pieces"]
+
+    def _seg_stack(self):
+        """Legacy stacked seg slabs (dummy-row piece padding), uniform-seg
+        programs only, as the pre-IR ``build_distributed`` built them."""
+        if any(st.kernel != "seg" for st in self.stages):
+            return None
+        cached = getattr(self, "_seg_stack_cache", None)
+        if cached is None:
+            cached = _stack_seg_legacy([st.seg for st in self.stages],
+                                       self.rows_per_shard)
+            self._seg_stack_cache = cached
+        return cached
 
 
-for _name in ("data", "cols", "seg_vals", "seg_cols", "seg_rows",
-              "seg_pieces"):
-    setattr(SpmvProgram, _name, property(_legacy_view))
+def _stack_seg_legacy(segs, rows_per_shard) -> dict:
+    """Stacked per-shard SegMatrix slabs, padded to common shapes.
+
+    Column ids stay global (the allgather path gathers the full x); row ids
+    are shard-local.  Piece padding targets the per-shard dummy row
+    (``rows_pad``) with (lo=1, hi=0) so ``psum[c, hi] - psum[c, lo-1]``
+    evaluates to an exact zero for padded entries.
+    """
+    S = len(segs)
+    C_pad = max(s.num_chunks for s in segs)
+    L = segs[0].chunk
+    P_pad = max(max(s.n_pieces for s in segs), 1)
+    rows_pad = int(np.asarray(rows_per_shard).max())
+    vals = np.zeros((S, C_pad, L), dtype=np.float32)
+    cols = np.zeros((S, C_pad, L), dtype=np.int32)
+    rows = np.zeros((S, C_pad, L), dtype=np.int32)
+    pieces = np.zeros((S, P_pad, 4), dtype=np.int32)
+    pieces[:, :, 1] = 1                       # (lo=1, hi=0) -> exact zero
+    pieces[:, :, 3] = rows_pad                # dummy row, sliced off later
+    for p, s in enumerate(segs):
+        vals[p, : s.num_chunks] = s.vals
+        cols[p, : s.num_chunks] = s.cols
+        rows[p, : s.num_chunks] = s.rows
+        n = s.n_pieces
+        pieces[p, :n, 0] = s.piece_chunk
+        pieces[p, :n, 1] = s.piece_lo
+        pieces[p, :n, 2] = s.piece_hi
+        pieces[p, :n, 3] = s.piece_row
+    return dict(seg_vals=vals, seg_cols=cols, seg_rows=rows,
+                seg_pieces=pieces)
 
 
 # --------------------------------------------------------------------------
@@ -266,16 +359,20 @@ def _apply_perm(v: np.ndarray, perm: np.ndarray) -> np.ndarray:
     return out
 
 
-def _execute_numpy(program: SpmvProgram, x: np.ndarray) -> np.ndarray:
-    """y = A @ x on the host, caller index order, float64; ``x`` is (N,) or
-    (N, B).  Batch-major, so column b equals the per-vector call bitwise."""
+def _check_x(program: SpmvProgram, x: np.ndarray) -> None:
     if x.shape[0] != program.matrix.ncols:
         raise ValueError(f"x has {x.shape[0]} elements, matrix expects "
                          f"{program.matrix.ncols}")
+    if x.ndim not in (1, 2):
+        raise ValueError(f"x must be (N,) or (N, B), got shape {x.shape}")
+
+
+def _execute_numpy(program: SpmvProgram, x: np.ndarray) -> np.ndarray:
+    """y = A @ x on the host, caller index order, float64; ``x`` is (N,) or
+    (N, B).  Batch-major, so column b equals the per-vector call bitwise."""
+    _check_x(program, x)
     if x.ndim == 1:
         return _execute_numpy_block(program, x[:, None])[:, 0]
-    if x.ndim != 2:
-        raise ValueError(f"x must be (N,) or (N, B), got shape {x.shape}")
     return _execute_numpy_block(program, x)
 
 
@@ -669,7 +766,7 @@ def _tile_rows_used(tile_ptr: np.ndarray, sids: np.ndarray) -> int:
 
 
 def make_program_spmv_fn(program: SpmvProgram, *, device="cuda",
-                         pipeline: bool = True):
+                         pipeline: bool = True, graphs: bool = False):
     """The device executor: returns ``run(x_shards) -> y_shards``.
 
     ``x_shards`` is (S, per) or batched (S, per, B) in layout order (numpy
@@ -681,12 +778,30 @@ def make_program_spmv_fn(program: SpmvProgram, *, device="cuda",
     ``pipeline=True`` issues the local pass before the exchange gather,
     ``pipeline=False`` after it; the outputs are bitwise-equal.
 
+    ``graphs=True`` (CUDA only; it raises on another device) makes the
+    executor reusable at the card's own speed, as ``jax.jit`` makes the
+    reference's: the first call for each x shape, (S, per) or
+    (S, per, B), captures the call as one CUDA graph over a static x
+    buffer, and every call copies x in, replays the graph and returns a
+    copy of its output, bitwise the eager call's.  Calls from several
+    threads take turns on one lock; at most :data:`MAX_GRAPHS` shapes are
+    held, the least recently used dropped first.  ``run.graph_stats()``
+    lists each held shape's capture seconds (warm-up call included), the
+    device memory it holds (what its graph pool reserved during the
+    capture, plus the static x) and its replays; ``run.prime(shapes)``
+    captures shapes ahead of their first call (both are no-ops without
+    graphs).  Launch counts (``_lib.launch_counts``)
+    grow at the warm-up call and the capture, not at replays.
+
     ``run.operands`` (the device operand tensors), ``run.families``
     (kernel -> int32 shard ids), ``run.rb_used`` (per pass, the block rows
     the tile shards' tiles reach) and ``run.buffers(x_shards)`` (the local
     and remote x buffers) let a caller replay single kernels.
     """
     dev = resolve_device(device)
+    if graphs and dev.type != "cuda":
+        raise ValueError(f"graphs=True replays CUDA graphs; device {dev} "
+                         f"has none (use graphs=False)")
     ops = _device_operands(program)
     S, R = program.plan.num_shards, ops["R"]
     per = program.x_layout.padded_length() // S
@@ -729,9 +844,7 @@ def make_program_spmv_fn(program: SpmvProgram, *, device="cuda",
 
     def local_buffer(x_shards):
         x = torch.as_tensor(x_shards, dtype=torch.float32, device=dev)
-        if x.shape[:2] != (S, per) or x.dim() not in (2, 3):
-            raise ValueError(f"x_shards must be ({S}, {per}[, B]), got "
-                             f"{tuple(x.shape)}")
+        _check_shards(x, S, per)
         xb = x if x.dim() == 3 else x[..., None]
         return xb.permute(0, 2, 1).contiguous(), x.dim() == 3   # (S, B, per)
 
@@ -755,12 +868,103 @@ def make_program_spmv_fn(program: SpmvProgram, *, device="cuda",
         xb, _ = local_buffer(x_shards)
         return xb, exchange(xb)
 
+    if graphs:
+        run = _graphed(run, dev, S, per)
+    else:                                     # nothing to capture
+        run.prime = lambda shapes: None
+        run.graph_stats = lambda: []
+    run.program = program
     run.rows_out = R
     run.operands = T
     run.families = families
     run.num_splits = {"loc_": ops["NS_loc"], "rem_": ops["NS_rem"]}
     run.rb_used = rb_used
     run.buffers = buffers
+    return run
+
+
+def _check_shards(x, S: int, per: int) -> None:
+    if tuple(x.shape[:2]) != (S, per) or x.dim() not in (2, 3):
+        raise ValueError(f"x_shards must be ({S}, {per}[, B]), got "
+                         f"{tuple(x.shape)}")
+
+
+#: The most x shapes one graphed executor holds captured.  The router's
+#: micro-batches give at most ``max_batch`` shapes per tenant, plus the
+#: caller's own blocks.
+MAX_GRAPHS = 16
+
+
+def _graphed(eager, dev, S: int, per: int):
+    """``eager`` behind a cache of CUDA graphs, one per x shape."""
+    lock = threading.Lock()
+    held = collections.OrderedDict()      # shape -> (graph, x, y, stats)
+    state = {"stream": None, "done": None}
+
+    def capture(shape):
+        # Each executor captures on its own stream, so a re-plan thread and
+        # a request thread can capture at the same time; thread-local mode
+        # lets other threads launch and allocate meanwhile.  A warm-up
+        # call first loads every kernel outside the capture.
+        if state["stream"] is None:
+            state["stream"] = torch.cuda.Stream(dev)
+        side = state["stream"]
+        x = torch.zeros(shape, dtype=torch.float32, device=dev)
+        t0 = time.perf_counter()
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            eager(x)
+            reserved = torch.cuda.memory_reserved(dev)
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                y = eager(x)
+            except BaseException:
+                with contextlib.suppress(RuntimeError):  # keep the cause
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+            reserved = torch.cuda.memory_reserved(dev) - reserved
+        torch.cuda.current_stream(dev).wait_stream(side)
+        held[shape] = (graph, x, y, dict(
+            shape=list(shape), capture_s=time.perf_counter() - t0,
+            bytes=int(reserved) + x.numel() * x.element_size(), replays=0))
+        while len(held) > MAX_GRAPHS:
+            held.popitem(last=False)
+        return held[shape]
+
+    def entry(shape):
+        if shape in held:
+            held.move_to_end(shape)
+            return held[shape]
+        return capture(shape)
+
+    def run(x_shards):
+        x = torch.as_tensor(x_shards, dtype=torch.float32)
+        _check_shards(x, S, per)
+        stream = torch.cuda.current_stream(dev)
+        with lock:
+            graph, x_static, y_static, stats = entry(tuple(x.shape))
+            if state["done"] is not None:       # a caller on another stream
+                stream.wait_event(state["done"])
+            x_static.copy_(x)
+            graph.replay()
+            y = y_static.clone()
+            state["done"] = stream.record_event()
+            stats["replays"] += 1
+        return y
+
+    def prime(shapes):
+        with lock:
+            for shape in shapes:
+                entry(tuple(shape))
+
+    def graph_stats():
+        with lock:
+            return [dict(st) for _, _, _, st in held.values()]
+
+    run.prime = prime
+    run.graph_stats = graph_stats
     return run
 
 
@@ -772,6 +976,19 @@ def gather_b(program: SpmvProgram, y_shards) -> np.ndarray:
     for p, st in enumerate(program.stages):
         out[st.row_offset: st.row_offset + st.rows] = y[p, : st.rows]
     return out if program.perm is None else out[program.perm]
+
+
+def device_spmv(run, x: np.ndarray) -> np.ndarray:
+    """y = A @ x through ``run``, an executor of
+    :func:`make_program_spmv_fn`: ``x`` (N,) or (N, B) in the caller's
+    order in, float32 numpy (M,) or (M, B) in the caller's order out."""
+    program = run.program
+    x = np.asarray(x)
+    _check_x(program, x)
+    xp = x.astype(np.float32)
+    if program.perm is not None:
+        xp = _apply_perm(xp, program.perm)
+    return gather_b(program, run(program.x_to_device(xp)))
 
 
 def probe_program(program: SpmvProgram, *, emu: EmuConfig | None = None,
@@ -804,10 +1021,7 @@ def execute(program: SpmvProgram, x: np.ndarray | None = None, *,
     if backend == "numpy":
         return _execute_numpy(program, x)
     if backend == "device":
-        fn = make_program_spmv_fn(program, device=device, pipeline=pipeline)
-        xp = np.asarray(x, dtype=np.float32)
-        if program.perm is not None:
-            xp = _apply_perm(xp, program.perm)
-        return gather_b(program, fn(program.x_to_device(xp)))
+        return device_spmv(make_program_spmv_fn(program, device=device,
+                                                pipeline=pipeline), x)
     raise ValueError(f"unknown executor backend {backend!r}; expected "
                      f"'numpy', 'device' or 'emu'")

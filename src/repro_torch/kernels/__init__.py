@@ -13,7 +13,9 @@ per-format kernel API of ``repro.kernels`` on top of them.
 
 Every op takes x of shape (N,) or (N, B) and runs on ``device``, CUDA
 unless the caller passes ``device="cpu"``, where the kernels' plain
-versions run.
+versions run.  A ``SegMatrix``, ``SplitMatrix`` or ``TileMatrix`` keeps
+its device form (arrays on the device, the piece table) after its first
+call on a device; raw array tuples are converted on every call.
 
 Examples
 --------

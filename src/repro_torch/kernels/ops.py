@@ -231,13 +231,21 @@ def _piece_table(dev, chunk, lo, hi, row, split, L: int, num_rows: int):
     return pcs, _ranges(pcs[:, 3], num_rows)
 
 
-def _format_arrays(fmt, cls, fields, num_rows, what: str):
-    if isinstance(fmt, cls):
-        return ([getattr(fmt, f) for f in fields],
-                fmt.shape[0] if num_rows is None else num_rows)
-    if num_rows is None:
-        raise ValueError(f"num_rows is required with raw {what} arrays")
-    return list(fmt), num_rows
+def _device_form(fmt, cls, fields, num_rows, what: str, dev, build):
+    """``build(arrays, num_rows)``: the device form (operands, piece table)
+    of a format object or a raw tuple of its arrays.  A format object is
+    frozen, so its form is built once per device and row count and kept on
+    the object; a raw tuple is built anew on every call."""
+    if not isinstance(fmt, cls):
+        if num_rows is None:
+            raise ValueError(f"num_rows is required with raw {what} arrays")
+        return build(list(fmt), num_rows)
+    num_rows = fmt.shape[0] if num_rows is None else num_rows
+    forms = vars(fmt).setdefault("_device_forms", {})
+    key = (str(dev), num_rows)
+    if key not in forms:
+        forms[key] = build([getattr(fmt, f) for f in fields], num_rows)
+    return forms[key]
 
 
 def _ell(dev, data, cols, ovf, x):
@@ -278,14 +286,18 @@ def seg_spmv(seg: "SegMatrix | tuple", x, *, num_rows: int | None = None,
     :class:`SegMatrix` or the tuple ``(vals, cols, rows, piece_chunk,
     piece_lo, piece_hi, piece_row)`` (then ``num_rows`` is required)."""
     dev = resolve_device(device)
-    arrays, num_rows = _format_arrays(
+
+    def build(arrays, num_rows):
+        vals, cols = _on(dev, arrays[0]), _idx(dev, arrays[1])
+        p_chunk, p_lo, p_hi, p_row = arrays[3:]
+        return (vals, cols) + _piece_table(
+            dev, p_chunk, p_lo, p_hi, p_row,
+            torch.zeros(len(p_row), dtype=torch.int32, device=dev),
+            vals.shape[1], num_rows)
+    vals, cols, pcs, ptr = _device_form(
         seg, SegMatrix, ("vals", "cols", "rows", "piece_chunk", "piece_lo",
-                         "piece_hi", "piece_row"), num_rows, "seg")
-    vals, cols = _on(dev, arrays[0]), _idx(dev, arrays[1])
-    p_chunk, p_lo, p_hi, p_row = arrays[3:]
-    pcs, ptr = _piece_table(dev, p_chunk, p_lo, p_hi, p_row,
-                            torch.zeros(len(p_row), dtype=torch.int32,
-                                        device=dev), vals.shape[1], num_rows)
+                         "piece_hi", "piece_row"), num_rows, "seg", dev,
+        build)
     xb, batched = _x_in(dev, x)
     y = seg_stacked(vals[None], cols[None], pcs[None], ptr[None], xb[None],
                     _one(dev))
@@ -300,15 +312,20 @@ def split_spmv(spl: "SplitMatrix | tuple", x, *,
     piece_chunk, piece_lo, piece_hi, piece_row)`` (then ``num_rows`` is
     required)."""
     dev = resolve_device(device)
-    arrays, num_rows = _format_arrays(
+
+    def build(arrays, num_rows):
+        vals, cols = _on(dev, arrays[0]), _idx(dev, arrays[1])
+        _, Cs, L = vals.shape
+        p_split, p_chunk, p_lo, p_hi, p_row = (_idx(dev, a)
+                                               for a in arrays[3:])
+        return (vals, cols) + _piece_table(
+            dev, p_split * Cs + p_chunk, p_lo, p_hi, p_row, p_split, L,
+            num_rows)
+    vals, cols, pcs, ptr = _device_form(
         spl, SplitMatrix, ("vals", "cols", "rows", "piece_split",
                            "piece_chunk", "piece_lo", "piece_hi",
-                           "piece_row"), num_rows, "split")
-    vals, cols = _on(dev, arrays[0]), _idx(dev, arrays[1])
+                           "piece_row"), num_rows, "split", dev, build)
     NS, Cs, L = vals.shape
-    p_split, p_chunk, p_lo, p_hi, p_row = (_idx(dev, a) for a in arrays[3:])
-    pcs, ptr = _piece_table(dev, p_split * Cs + p_chunk, p_lo, p_hi, p_row,
-                            p_split, L, num_rows)
     xb, batched = _x_in(dev, x)
     psum = split_psum(vals, cols, xb)                     # (B, NS, Cs, L)
     y = _split_fixup_combine(psum.view(1, -1, NS * Cs, L), pcs[None],
@@ -339,10 +356,13 @@ def tile_spmv(tile: TileMatrix, x, *, num_rows: int | None = None,
     only the cells ``tile.mask`` marks."""
     dev = resolve_device(device)
     num_rows = tile.shape[0] if num_rows is None else num_rows
+    data, tcols, tptr, mask = _device_form(
+        tile, TileMatrix, ("data", "tile_cols", "tile_ptr", "mask"), None,
+        "tile", dev, lambda a, _: (_on(dev, a[0]), _idx(dev, a[1]),
+                                   _idx(dev, a[2]),
+                                   _on(dev, a[3], torch.uint8)))
     xb, batched = _x_in(dev, x)
-    y = tile_walk_spmv(_on(dev, tile.data), _idx(dev, tile.tile_cols),
-                       _idx(dev, tile.tile_ptr), xb,
-                       mask=_on(dev, tile.mask, torch.uint8))
+    y = tile_walk_spmv(data, tcols, tptr, xb, mask=mask)
     return _y_out(y[:, :num_rows], batched)
 
 

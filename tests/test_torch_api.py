@@ -390,3 +390,39 @@ def test_ops_without_device_raise_without_cuda(monkeypatch, monster):
                                         np.zeros((8, 128), np.int32), x)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+FORMATS = {"seg": (t_ops.seg_from_csr, t_ops.seg_spmv),
+           "split": (lambda A: t_ops.split_from_csr(A, 2), t_ops.split_spmv),
+           "tile": (t_ops.tile_from_csr, t_ops.tile_spmv)}
+
+
+@pytest.mark.parametrize("fmt", sorted(FORMATS))
+def test_format_objects_keep_their_device_form(monkeypatch, monster, fmt):
+    """A format object is converted once per device: a second call builds
+    no piece table and reuses the same device arrays, and answers bitwise
+    as the first.  A raw tuple is converted on every call."""
+    A, x = monster
+    build, op = FORMATS[fmt]
+    obj = build(_port(A))
+    tables = []
+    piece_table = t_ops._piece_table
+    monkeypatch.setattr(t_ops, "_piece_table", lambda *a: tables.append(1)
+                        or piece_table(*a))
+    first = op(obj, x, device="cpu")
+    built = len(tables)
+    assert built == (0 if fmt == "tile" else 1)
+    (form,) = vars(obj)["_device_forms"].values()
+    second = op(obj, _block(1024, 3), device="cpu")
+    third = op(obj, x, device="cpu")
+    assert len(tables) == built
+    (again,) = vars(obj)["_device_forms"].values()
+    assert all(a is b for a, b in zip(form, again))
+    assert torch.equal(first, third) and second.shape == (1024, 3)
+    if fmt == "seg":
+        raw = (obj.vals, obj.cols, obj.rows, obj.piece_chunk, obj.piece_lo,
+               obj.piece_hi, obj.piece_row)
+        for _ in range(2):
+            assert torch.equal(op(raw, x, num_rows=1024, device="cpu"),
+                               first)
+        assert len(tables) == built + 2

@@ -600,3 +600,192 @@ def test_tile_flat_spmv_at_any_shape_on_card(device, bm, bn):
                                atol=2e-4)
     for b in range(3):
         assert torch.equal(Y[:, b], run(X[:, b].copy()))
+
+
+def _plan_matrix(name):
+    return mats.blocked_band(4096, 4096 * 24, seed=0) if name == "mixed" \
+        else mats.powerlaw_tail(4096, 4096 * 16, n_monster=4, seed=0)
+
+
+def _on_card(prog, x, device):
+    xp = x if prog.perm is None else P._apply_perm(x, prog.perm)
+    return torch.from_numpy(prog.x_to_device(xp.astype(np.float32))).to(
+        device)
+
+
+@pytest.mark.parametrize("name", sorted(PLANS))
+def test_graph_replay_equals_eager(device, name):
+    """Graph-replayed calls are bitwise the eager executor's, a vector
+    and an (N, 8) block, new x every call; launches count at the capture
+    (and its warm-up call), not at replays."""
+    A = _plan_matrix(name)
+    prog = P.lower(A, SpmvPlan(**PLANS[name]))
+    eager = P.make_program_spmv_fn(prog, device=device)
+    graphed = P.make_program_spmv_fn(prog, device=device, graphs=True)
+    rng = np.random.default_rng(7)
+    for shape in ((A.ncols,), (A.ncols, 8)):
+        for i in range(3):
+            xs = _on_card(prog, rng.standard_normal(shape), device)
+            _lib.reset_launch_counts()
+            got = graphed(xs if i else xs.cpu().numpy())
+            counted = sum(_lib.launch_counts.values())
+            assert (counted > 0) == (i == 0)
+            assert torch.equal(got, eager(xs))
+    stats = graphed.graph_stats()
+    S, per = prog.plan.num_shards, prog.x_layout.padded_length() // \
+        prog.plan.num_shards
+    assert [st["shape"] for st in stats] == [[S, per], [S, per, 8]]
+    assert all(st["replays"] == 3 and st["bytes"] > 0 for st in stats)
+    y = P.device_spmv(graphed, np.ones(A.ncols))
+    np.testing.assert_allclose(y, csr_matvec(A, np.ones(A.ncols)),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_graph_replay_serves_each_thread_its_answer(device):
+    """Two threads replaying one executor (with a short switch interval)
+    each get the answers to their own x."""
+    import sys
+    import threading
+
+    A = _plan_matrix("mixed")
+    prog = P.lower(A, SpmvPlan(**PLANS["mixed"]))
+    eager = P.make_program_spmv_fn(prog, device=device)
+    graphed = P.make_program_spmv_fn(prog, device=device, graphs=True)
+    rng = np.random.default_rng(8)
+    xs = [_on_card(prog, rng.standard_normal(A.ncols), device)
+          for _ in range(2 * 24)]
+    want = [eager(x) for x in xs]
+    got = [None] * len(xs)
+
+    def client(t):
+        for i in range(t, len(xs), 2):
+            got[i] = graphed(xs[i])
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+            assert not th.is_alive()
+    finally:
+        sys.setswitchinterval(interval)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_router_on_card(device):
+    """The router on the card: answers within the scaled 2e-4,
+    micro-batched answers bitwise the solo calls and the eager executor,
+    and a rebalance swap serves the new program through a fresh
+    executor."""
+    import threading
+
+    from repro_torch.serve import MicroBatchConfig, RebalanceConfig, \
+        SparseMatrixEngine
+
+    def scaled(A, x, y):
+        absA = dataclasses.replace(A, values=np.abs(A.values))
+        return float((np.abs(y - csr_matvec(A, x))
+                      / (1.0 + csr_matvec(absA, np.abs(x)))).max())
+
+    A = mats.make_matrix("cop20k_A", scale=0.005)
+    eng = SparseMatrixEngine(num_shards=4, device=device,
+                             micro_batch=MicroBatchConfig(max_batch=4,
+                                                          max_wait_ms=50.0))
+    eng.ingest("a", A)
+    m = eng._matrices["a"]
+    assert len(m.executor.graph_stats()) == 4        # shapes B = 1..4
+    rng = np.random.default_rng(9)
+    xs = [rng.standard_normal(A.ncols) for _ in range(4)]
+    got = [None] * 4
+    barrier = threading.Barrier(4)
+
+    def hit(i):
+        barrier.wait(timeout=30)
+        got[i] = eng.spmv("a", xs[i])
+
+    threads = [threading.Thread(target=hit, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    assert eng.stats()["a"]["micro_batch"]["widest"] >= 2
+    eager = P.make_program_spmv_fn(m.dist, device=device)
+    for x, y in zip(xs, got):
+        assert scaled(A, x, y) <= 2e-4
+        assert np.array_equal(y, eng.spmv("a", x))
+        assert np.array_equal(y, P.device_spmv(eager, x))
+
+    cfg = RebalanceConfig(window=32, patience=2, cooldown=2, probe=2)
+    eng = SparseMatrixEngine(num_shards=4, rebalance=cfg, device=device)
+    eng.ingest("a", A)
+    m = eng._matrices["a"]
+    first = m.executor
+    order = np.arange(A.ncols) if m.dist.perm is None else m.dist.perm
+    hot = np.flatnonzero(m.dist.x_layout.owner_of(order) == 0)
+    k = max(A.ncols // 20, 8)
+    for i in range(12 * cfg.window):
+        x = np.zeros(A.ncols)
+        idx = rng.integers(0, A.ncols, k) if i < 2 * cfg.window \
+            else rng.choice(hot, size=k)
+        x[idx] = rng.standard_normal(k)
+        assert scaled(A, x, eng.spmv("a", x)) <= 2e-4
+        if any(e.swapped for e in m.rebalance_log):
+            break
+    assert any(e.swapped for e in m.rebalance_log)
+    assert m.executor is not first and m.executor.program is m.dist
+    assert [st["shape"] for st in m.executor.graph_stats()] == \
+        [st["shape"] for st in first.graph_stats()]
+    assert not any(t.data_ptr() == u.data_ptr()
+                   for t in m.executor.operands.values()
+                   for u in first.operands.values() if t.numel())
+    x = np.random.default_rng(10).standard_normal(A.ncols)
+    assert scaled(A, x, eng.spmv("a", x)) <= 2e-4
+
+
+def test_router_async_replan_captures_beside_requests(device):
+    """``async_replan``: the re-plan thread builds the new program's
+    executor and captures its shapes while this thread keeps serving
+    through the old one (thread-local capture); every answer is within
+    the scaled 2e-4 and the swapped-in executor serves the new program."""
+    from repro_torch.serve import RebalanceConfig, SparseMatrixEngine
+
+    A = mats.make_matrix("cop20k_A", scale=0.005)
+    absA = dataclasses.replace(A, values=np.abs(A.values))
+    cfg = RebalanceConfig(window=32, patience=2, cooldown=2, probe=2,
+                          async_replan=True)
+    eng = SparseMatrixEngine(num_shards=4, rebalance=cfg, device=device)
+    eng.ingest("a", A)
+    m = eng._matrices["a"]
+    first = m.executor
+    order = np.arange(A.ncols) if m.dist.perm is None else m.dist.perm
+    hot = np.flatnonzero(m.dist.x_layout.owner_of(order) == 0)
+    rng = np.random.default_rng(11)
+    k = max(A.ncols // 20, 8)
+    during = 0
+    for i in range(40 * cfg.window):
+        x = np.zeros(A.ncols)
+        idx = rng.integers(0, A.ncols, k) if i < 2 * cfg.window \
+            else rng.choice(hot, size=k)
+        x[idx] = rng.standard_normal(k)
+        y = eng.spmv("a", x)
+        err = np.abs(y - csr_matvec(A, x)) / (1.0 + csr_matvec(absA,
+                                                               np.abs(x)))
+        assert err.max() <= 2e-4
+        worker = m.replan_thread
+        if worker is not None:
+            during += worker.is_alive()
+            if not worker.is_alive() and any(e.swapped
+                                             for e in m.rebalance_log):
+                break
+    assert m.replan_thread is not None
+    m.replan_thread.join(timeout=120)
+    assert not m.replan_thread.is_alive()
+    assert during > 0                        # served while it re-planned
+    assert any(e.swapped for e in m.rebalance_log)
+    assert m.executor is not first and m.executor.program is m.dist
+    assert m.executor.graph_stats()

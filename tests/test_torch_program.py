@@ -129,5 +129,20 @@ def test_executor_shapes_and_unported_paths():
     assert all(a is b for a, b in zip(t_program.relower(tp, tp.plan).stages,
                                       tp.stages))
     assert isinstance(TPlan.auto(tp.matrix, num_shards=2, probe=0), TPlan)
-    with pytest.raises(NotImplementedError):
-        tp.seg_vals
+    # the legacy stacked-slab views are the reference's, bitwise
+    rp = r_program.lower(A_MIXED, RPlan(num_shards=2, kernel="seg"))
+    for name in ("seg_vals", "seg_cols", "seg_rows", "seg_pieces", "data",
+                 "cols"):
+        want, got = getattr(rp, name), getattr(tp, name)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+def test_graphs_need_cuda():
+    """Graph replay is CUDA's: asked for on the CPU it raises, it never
+    runs eagerly without saying so."""
+    tp = t_program.lower(_port(A_MIXED), TPlan(num_shards=2, kernel="seg"))
+    with pytest.raises(ValueError, match="graphs=True"):
+        t_program.make_program_spmv_fn(tp, device="cpu", graphs=True)
+    run = t_program.make_program_spmv_fn(tp, device="cpu")
+    assert run.program is tp and run.graph_stats() == []
