@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's sparse device path on one NVIDIA GPU and check it.
+"""Drive the port's sparse device path and its LM serving path on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # the full run, one card
 
@@ -7,8 +8,9 @@ Builds the CUDA kernels from ``src/repro_torch/csrc``, then runs a
 ``planner`` phase on the host, three phases through the executor's entry
 points (``lower``, ``make_program_spmv_fn``, ``gather_b``), a
 ``kernel_api`` phase through the per-format kernel API
-(``repro_torch.kernels``) and a ``serving`` phase through the router
-(``repro_torch.serve``):
+(``repro_torch.kernels``), a ``serving`` phase through the router
+(``repro_torch.serve``) and an ``lm_serve`` phase through the LM
+``Engine``:
 
 * ``planner``: ``autotune(make_matrix("cop20k_A"), num_shards=8)`` at
   the full Table-I size (120,000 rows) with the default probe must pick
@@ -61,7 +63,25 @@ points (``lower``, ``make_program_spmv_fn``, ``gather_b``), a
   stream, micro-batch sizes, swaps, one thread's solo-call p50 and the
   wall ms of a batch's host steps at B = 1, 3, 8 (``host_path_ms``).
   Its launch counts are the warm-up calls and captures (replays launch
-  uncounted) and stay out of the kernels line.
+  uncounted) and stay out of the kernels line;
+* ``lm_serve``: qwen3-4b at its published size (36 layers, 4.411 B
+  parameters in bf16, from a seeded CUDA generator) serves 4 requests of
+  8 prompt and 16 new tokens through ``Engine.generate``; a second
+  ``generate`` must give bitwise the same tokens; the engine's steps are
+  replayed through ``decode_step`` under CUDA events (stepped prefill ms
+  a token, median decode ms a step, one step replayed as a CUDA graph,
+  beside the bound: weight and cache bytes over 3.35 TB/s); a
+  teacher-forced ``forward`` over the (4, 24) tokens must agree with the
+  decode logits within the reference's decode-vs-forward tolerance (0.15
+  rtol and atol), each greedy token must be its argmax but at near-ties
+  (counted), ``prefill`` must equal its last position, all logits
+  finite.  Then every arch at its published widths, depth cut to one
+  pattern unit plus the dense-first layers (``reduced``), runs the same
+  checks over 4 new tokens (MoE archs on f32 parameters at a dropless
+  capacity, as the reference's decode check; xLSTM's comparison held on
+  one mLSTM and one sLSTM block, ``LM_HELD_ON``), freeing the card
+  between archs.  The LM path must launch none of the sparse kernels.
+  Prints one ``{"lm_serve": ...}`` line.
 
 Each program or API call answers four single vectors and one (N, 8)
 block with the launch counts zeroed just before and read just after,
@@ -1145,6 +1165,267 @@ def serving_phase(torch, matrices, tenant_plans, artifact_dir, device,
     return out
 
 
+#: The LM serving phase: requests, prompt and generated tokens, the
+#: reference's decode-vs-forward tolerance (rtol = atol,
+#: ``tests/test_models.py``), the full-size arch and the depth-cut arches'
+#: new tokens.
+LM_BATCH, LM_PROMPT, LM_GEN, LM_CUT_GEN = 4, 8, 16, 4
+LM_TOL = 0.15
+LM_FULL_ARCH = "qwen3_4b"
+#: Archs whose decode and forward logits part at their published widths in
+#: the reference as well (xLSTM: by 1.17 within three tokens over one
+#: 8-layer unit, ``repro.models`` on the CPU; one mLSTM and one sLSTM
+#: block agree within 0.004), so the two are held to each other on one
+#: block of each kind and only recorded over the whole unit.
+LM_HELD_ON = {"xlstm_1_3b": ("mlstm", "slstm")}
+
+
+def lm_cut(cfg):
+    """One pattern unit plus the dense-first layers, at full width."""
+    return dataclasses.replace(
+        cfg, num_layers=cfg.dense_first_layers + len(cfg.pattern()))
+
+
+def lm_excess(got, want) -> float:
+    """How far |got - want| passes atol + rtol |want| (<= 0: within)."""
+    return float(((got - want).abs() - LM_TOL * (1 + want.abs())).max())
+
+
+def aten_ops(torch, fn) -> int:
+    """The ATen ops ``fn`` dispatches, views not counted: about one kernel
+    launch each."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+    with Count():
+        fn()
+    return Count.n
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """The expert ids ``moe.route`` picks, call by call."""
+    from repro_torch.models import moe
+    calls, real = [], moe.route
+
+    def route(params, x2d, cfg):
+        weights, ids, zloss = real(params, x2d, cfg)
+        calls.append(ids)
+        return weights, ids, zloss
+    moe.route = route
+    try:
+        yield calls
+    finally:
+        moe.route = real
+
+
+def routes_agree(torch, dec_routes, fwd_routes, B, S, device):
+    """(B, S) bool: the positions before each row's first route flip, where
+    every MoE layer chose the same experts stepping as in the forward.  A
+    flip moves that token's output by a whole expert's share, and its KV
+    every later position in the row."""
+    same = torch.ones((B, S), dtype=torch.bool, device=device)
+    L = len(fwd_routes)
+    check(len(dec_routes) == L * S, "one route a MoE layer a step")
+    for layer, f in enumerate(fwd_routes):
+        f = f.sort(dim=-1).values.reshape(B, S, -1)
+        d = torch.stack([dec_routes[t * L + layer].sort(dim=-1).values
+                         for t in range(S)], dim=1)
+        same &= (f == d).all(dim=-1)
+    return same.cumprod(dim=1).bool()
+
+
+def lm_model_run(torch, cfg, device, seed, gen, *, timing=False,
+                 hold=True) -> dict:
+    """Build ``cfg`` from a seeded generator on the card, serve LM_BATCH
+    prompts of LM_PROMPT tokens through ``Engine`` (twice: bitwise equal
+    tokens), replay its steps through ``decode_step`` under CUDA events,
+    and hold the decode logits to a teacher-forced ``forward`` over the
+    served tokens, the greedy tokens to its argmax (but at near-ties) and
+    ``prefill`` to its last position.  MoE archs carry f32 parameters at a
+    dropless capacity, as the reference's own decode check does (bf16
+    activations can flip a near-tied expert choice between the paths).
+    ``hold=False`` records the decode-vs-forward comparisons unchecked."""
+    from repro_torch.models import model as mm
+    from repro_torch.models import params as pp
+    from repro_torch.serve import Engine, ServeConfig
+
+    B, P = LM_BATCH, LM_PROMPT
+    max_len = P + gen + 8
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = pp.init_params(cfg, torch.Generator(device=device).manual_seed(
+        seed), device=device)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=16.0))
+        params = pp.tree_map(lambda t: t.float(), params)
+    torch.cuda.synchronize()
+    out = dict(arch=cfg.name, layers=cfg.num_layers,
+               params=cfg.param_count(), init_s=time.perf_counter() - t0)
+    weight_bytes = nbytes(*pp.tree_leaves(params))
+    out["weights_gb"] = weight_bytes / 1e9
+    eng = Engine(cfg, params, ServeConfig(max_len=max_len), device=device)
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, P)).astype(np.int32)
+    t0 = time.perf_counter()
+    served = eng.generate(prompts, gen)
+    out["generate_s"] = time.perf_counter() - t0
+    check(served.shape == (B, P + gen) and
+          np.array_equal(served[:, :P], prompts), f"{cfg.name}: served shape")
+    check(np.array_equal(eng.generate(prompts, gen), served),
+          f"{cfg.name}: a second generate gave other tokens")
+
+    # the engine's steps again, timed, keeping their logits
+    toks = torch.as_tensor(served, dtype=torch.long, device=device)
+    caches = mm.init_cache(cfg, B, max_len, device=device)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(P + gen)]
+    seen = []
+    with torch.inference_mode(), recorded_routes() as dec_routes:
+        events[0].record()
+        for t in range(P + gen - 1):
+            logits, caches = mm.decode_step(params, cfg, toks[:, t: t + 1],
+                                            caches, t)
+            seen.append(logits[:, 0])
+            events[t + 1].record()
+        torch.cuda.synchronize()
+    with torch.inference_mode():
+        step_ms = [events[i].elapsed_time(events[i + 1])
+                   for i in range(P + gen - 1)]
+        dec = torch.stack(seen, dim=1)            # (B, P+gen-1, [K,] V)
+        head_d = dec[:, :, 0] if cfg.num_codebooks > 1 else dec
+        check(torch.equal(head_d[:, P - 1:].argmax(dim=-1), toks[:, P:]),
+              f"{cfg.name}: replayed steps chose other tokens")
+        check(bool(torch.isfinite(dec).all()), f"{cfg.name}: decode logits")
+
+        # teacher-forced forward over the served tokens
+        fcfg, ids = cfg, toks[:, :-1]
+        if cfg.frontend == "encodec_stub":
+            batch = {"frames": params["embed"][ids].to(torch.bfloat16)
+                     * mm.embed_scale(cfg)}
+        elif cfg.frontend == "siglip_stub":
+            # the engine serves text with no image: a zero-length prefix
+            fcfg = dataclasses.replace(cfg, prefix_len=0)
+            batch = {"image_embeds": torch.zeros(
+                (B, 0, cfg.d_model), dtype=torch.bfloat16, device=device),
+                "tokens": ids}
+        else:
+            batch = {"tokens": ids}
+        with recorded_routes() as fwd_routes:
+            full, _ = mm.forward(params, fcfg, batch)
+        check(full.shape == dec.shape and bool(torch.isfinite(full).all()),
+              f"{cfg.name}: forward logits")
+        # MoE: held up to each row's first route flip (bf16 attention
+        # probabilities in decode move a near-tied expert choice)
+        ok = routes_agree(torch, dec_routes, fwd_routes, B, P + gen - 1,
+                          device)
+        check(bool(ok[:, 0].all()), f"{cfg.name}: routes at position 0")
+        if fwd_routes:
+            out["positions_held"] = [int(ok.sum()), ok.numel()]
+        diff = (dec - full).abs()
+        out["max_abs_decode_vs_forward"] = float(diff.max())
+        over = diff - LM_TOL * (1 + full.abs())
+        over = over.reshape(B, P + gen - 1, -1).amax(dim=-1)
+        out["max_abs_decode_vs_forward_held"] = float(
+            diff.reshape(B, P + gen - 1, -1).amax(dim=-1)[ok].max())
+        check(not hold or float(over[ok].max()) <= 0,
+              f"{cfg.name}: decode logits off the forward's by "
+              f"{out['max_abs_decode_vs_forward_held']}")
+        # greedy tokens against the forward's argmax, but at near-ties:
+        # top-2 within twice the row's |decode - forward| of each other
+        head_f = full[:, :, 0] if cfg.num_codebooks > 1 else full
+        head_f, head_d = head_f[:, P - 1:], head_d[:, P - 1:]
+        top2 = head_f.topk(2, dim=-1).values
+        near = (top2[..., 0] - top2[..., 1]) <= \
+            2 * (head_d - head_f).abs().amax(dim=-1)
+        differ = (head_f.argmax(dim=-1) != toks[:, P:]) & ok[:, P - 1:]
+        check(not hold or not bool((differ & ~near).any()),
+              f"{cfg.name}: a greedy token is not the forward's argmax")
+        out["near_ties"] = int(near.sum())
+        out["greedy_off_forward_argmax"] = int(differ.sum())
+        last = mm.prefill(params, fcfg, batch)
+        out["max_abs_prefill_vs_forward"] = float(
+            (last - full[:, -1:]).abs().max())
+        check(lm_excess(last, full[:, -1:]) <= 0 and
+              bool(torch.isfinite(last).all()), f"{cfg.name}: prefill")
+        if cfg.frontend == "siglip_stub":
+            # the prefix-LM path at full width: 256 image tokens
+            img = torch.randn((1, cfg.prefix_len, cfg.d_model),
+                              generator=torch.Generator(device=device)
+                              .manual_seed(seed), device=device)
+            full_img, _ = mm.forward(params, cfg, {
+                "image_embeds": img.to(torch.bfloat16), "tokens": ids[:1]})
+            check(full_img.shape == (1, cfg.prefix_len + ids.shape[1],
+                                     cfg.vocab_size) and
+                  bool(torch.isfinite(full_img).all()),
+                  f"{cfg.name}: image-prefix forward")
+            out["image_prefix_tokens"] = cfg.prefix_len
+
+        if timing:
+            out["prefill_ms_per_token"] = sum(step_ms[:P]) / P
+            out["decode_ms"] = float(np.median(step_ms[P:]))
+            out["decode_ms_all"] = step_ms[P:]
+            out["tokens_per_s"] = B * 1000.0 / out["decode_ms"]
+            cache_bytes = nbytes(*pp.tree_leaves(caches))
+            out["cache_mb"] = cache_bytes / 1e6
+            # each weight and cache byte read once a step
+            out["decode_bound_ms"] = (weight_bytes + cache_bytes) \
+                / HBM_BYTES_PER_S * 1e3
+            # one step replayed as a CUDA graph: the card's own share
+            tok = toks[:, P: P + 1]
+            out["decode_ops"] = aten_ops(
+                torch, lambda: mm.decode_step(params, cfg, tok, caches, P))
+            out["decode_graph_ms"] = graph_ms(
+                torch, lambda: mm.decode_step(params, cfg, tok, caches, P),
+                iters=10)
+    return out
+
+
+def lm_serve_phase(torch, device, seed) -> dict:
+    """The LM serving path: ``LM_FULL_ARCH`` at its published size, then
+    every arch at its published widths, depth cut to one pattern unit
+    (plus the dense-first layers).  The LM path reaches none of the
+    port's CUDA kernels: their launch counts must not move."""
+    from repro_torch.configs.registry import ARCH_IDS, get_config
+    from repro_torch.kernels import _lib
+
+    before = dict(_lib.launch_counts)
+    torch.cuda.reset_peak_memory_stats()
+    full = lm_model_run(torch, get_config(LM_FULL_ARCH), device, seed,
+                        LM_GEN, timing=True)
+    full["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    archs = []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        cut = lm_cut(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        held = LM_HELD_ON.get(arch)
+        r = lm_model_run(torch, cut, device, seed, LM_CUT_GEN,
+                         hold=held is None)
+        r["reduced"] = {"num_layers": [cfg.num_layers, cut.num_layers]}
+        if held:
+            pair = dataclasses.replace(cut, block_pattern=held,
+                                       num_layers=len(held))
+            r["held_on"] = lm_model_run(torch, pair, device, seed,
+                                        LM_CUT_GEN)
+            r["held_on"]["block_pattern"] = list(held)
+        r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        archs.append(r)
+        torch.cuda.empty_cache()
+    check(_lib.launch_counts == before,
+          "the LM path launched a sparse kernel")
+    return {"full": full, "archs": archs,
+            "requests": LM_BATCH, "prompt_tokens": LM_PROMPT,
+            "new_tokens": [LM_GEN, LM_CUT_GEN], "tolerance": LM_TOL}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1224,6 +1505,10 @@ def run_phases(torch, device, seed, artifact_dir) -> int:
                             device, seed + 2)
     serving["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"serving": serving}))
+    t0 = time.perf_counter()
+    lm = lm_serve_phase(torch, device, seed + 3)
+    lm["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"lm_serve": lm}))
     summary = []
     for name in _lib.KERNELS:
         check(totals[name] > 0, f"{name} was never launched on the main path")
