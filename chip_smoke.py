@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's sparse device path and its LM serving path on one
-NVIDIA GPU and check them.
+"""Drive the port's sparse device path and its LM serving and training
+paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # the full run, one card
 
@@ -9,8 +9,9 @@ Builds the CUDA kernels from ``src/repro_torch/csrc``, then runs a
 points (``lower``, ``make_program_spmv_fn``, ``gather_b``), a
 ``kernel_api`` phase through the per-format kernel API
 (``repro_torch.kernels``), a ``serving`` phase through the router
-(``repro_torch.serve``) and an ``lm_serve`` phase through the LM
-``Engine``:
+(``repro_torch.serve``), an ``lm_serve`` phase through the LM
+``Engine`` and an ``lm_train`` phase through ``make_train_step`` and
+``train_loop``:
 
 * ``planner``: ``autotune(make_matrix("cop20k_A"), num_shards=8)`` at
   the full Table-I size (120,000 rows) with the default probe must pick
@@ -81,7 +82,27 @@ points (``lower``, ``make_program_spmv_fn``, ``gather_b``), a
   capacity, as the reference's decode check; xLSTM's comparison held on
   one mLSTM and one sLSTM block, ``LM_HELD_ON``), freeing the card
   between archs.  The LM path must launch none of the sparse kernels.
-  Prints one ``{"lm_serve": ...}`` line.
+  Prints one ``{"lm_serve": ...}`` line;
+* ``lm_train``: with the earlier phases' memory released, qwen3-4b at
+  its published size (random weights from a seeded CUDA generator) with
+  AdamW state on top takes a warm-up step, a step under the ATen op
+  counter and 4 steps under CUDA events through ``make_train_step``
+  (remat on, grad_accum 1) on ``TokenStream`` batches of 4 x 512 tokens,
+  beside the bound (``train_bound_ms``): every loss and gnorm finite,
+  ``lr`` equal to ``schedule``, the step-0 loss equal to a separate
+  ``loss_fn`` within ``TRAIN_LOSS_SELF_TOL``, the loss on step 0's batch
+  lower after the steps, peak memory under the card's.  Then every arch
+  at its published widths cut to one pattern unit (``reduced``) takes 2
+  steps at grad_accum 2, but those whose AdamW state with f32
+  accumulators exceeds the card (listed under ``skipped`` with their
+  bytes); then qwen3-4b cut to one layer takes one step on the card and
+  one on the CPU from the same weights and batch (loss, gnorm, m, v, the
+  parameters and the share of them more than an ulp apart within
+  ``CARD_CPU_TOL``, the CPU tests' tolerances),
+  and 4 steps through ``train_loop`` with a checkpoint after step 2,
+  resumed through ``elastic.resume`` (steps 2-3's losses within
+  ``RESTART_RTOL``).  The training path must launch none of the sparse
+  kernels.  Prints one ``{"lm_train": ...}`` line.
 
 Each program or API call answers four single vectors and one (N, 8)
 block with the launch counts zeroed just before and read just after,
@@ -1426,6 +1447,378 @@ def lm_serve_phase(torch, device, seed) -> dict:
             "new_tokens": [LM_GEN, LM_CUT_GEN], "tolerance": LM_TOL}
 
 
+# --------------------------------------------------------------------------
+# lm_train: the LM training path
+# --------------------------------------------------------------------------
+
+BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 (data sheet)
+#: ``lm_train``'s full-size run: TRAIN_BATCH x TRAIN_SEQ tokens a step, one
+#: plain warm-up step, one step under the ATen op counter, then
+#: TRAIN_TIMED steps under CUDA events.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED = 4, 512, 4
+#: The cut archs' steps (at grad_accum 2), and the card-against-CPU and
+#: restart runs' batch (qwen3-4b cut to one layer at full width).
+TRAIN_CUT_STEPS, TRAIN_CUT_ACCUM = 2, 2
+TRAIN_SMALL_BATCH, TRAIN_SMALL_SEQ = 2, 64
+#: Bytes a parameter: an AdamW step holds bf16 weights and gradients and
+#: f32 m and v (12); grad_accum > 1 adds the f32 accumulators (4).
+STEP_BYTES, ACCUM_BYTES = 12, 4
+#: Bytes of optimizer traffic a parameter: read p, g, m, v, write p, m, v,
+#: and the gradient norm's read of g, all once.
+OPT_BYTES = 2 + 2 + 4 + 4 + 2 + 4 + 4 + 2
+#: The step-0 loss the train step returns against a separate ``loss_fn``
+#: on the same weights (the same forward ops, with and without autograd).
+TRAIN_LOSS_SELF_TOL = 1e-3
+#: Card against CPU, one step from the same weights and batch: the CPU
+#: tests' tolerances (tests/test_torch_train_loop.py: the loss 5e-3
+#: absolute, gnorm 1e-2 relative, a parameter within 2 lr a step plus one
+#: bf16 ulp of its value, and at most 1% of the elements more than an ulp
+#: apart; tests/test_torch_train_grads.py: a gradient leaf within 0.06 of
+#: its max |value|, so m = 0.1 g after one step within 0.06 of its max and
+#: v, which goes as g**2, within 0.12).
+CARD_CPU_TOL = {"loss": 5e-3, "gnorm": 1e-2, "m": 0.06, "v": 0.12,
+                "param_lr": 2.0, "max_moved": 0.01}
+RESTART_RTOL = 1e-5              # tests/test_fault_tolerance.py's
+
+
+def one_device_mesh(device):
+    from repro_torch.launch.mesh import Mesh
+    return Mesh(("data", "model"), (1, 1), (device,))
+
+
+def train_bound_ms(cfg, batch: int, seq: int) -> dict:
+    """The least time of one AdamW step on the card: 6 N T FLOP of the
+    products (N: every parameter but the embedding table, a lookup; T
+    tokens) plus the dense S x S attention products forward and backward
+    (3 x layers x 4 B H S^2 hd), over the bf16 peak; then the optimizer's
+    bytes (OPT_BYTES a parameter) over the memory rate.  The recompute of
+    remat is not useful work and stays out."""
+    from repro_torch.models import params as pp
+    n_all = pp.count_params_config(cfg)
+    n = n_all - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model)
+    attn = cfg.num_layers * 3 * 4 * batch * cfg.num_heads * seq * seq * \
+        cfg.head_dim
+    flops = 6 * n * batch * seq + attn
+    opt_bytes = OPT_BYTES * n_all
+    compute_ms = flops / BF16_FLOPS_PER_S * 1e3
+    memory_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
+    return {"flops": flops, "optimizer_bytes": opt_bytes,
+            "compute_ms": compute_ms, "memory_ms": memory_ms,
+            "bound_ms": compute_ms + memory_ms}
+
+
+def train_stream(cfg, batch, seq, seed):
+    from repro_torch.data.synthetic import DataConfig, TokenStream
+    return TokenStream(cfg, DataConfig(seed=seed, batch=batch, seq_len=seq))
+
+
+def train_steps(torch, cfg, params, opt, stream, steps, device, *,
+                grad_accum=1, first=0, total=None, timed=False, count=False):
+    """``steps`` steps of ``make_train_step`` (remat on) from step
+    ``first`` of a ``total``-step schedule (``first + steps`` when None),
+    each checked: finite loss and gnorm, ``lr`` equal to ``schedule`` of
+    the step on its device.  Returns (params, opt, per-step records);
+    ``timed``: each step's ms under CUDA events and the host's ms to
+    issue it; ``count``: each step's ATen ops."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=1,
+                                total_steps=total or first + steps)
+    step_fn, _, _ = loop.make_train_step(
+        cfg, opt_cfg, one_device_mesh(device),
+        loop.RunConfig(fsdp=False, remat=True, grad_accum=grad_accum))
+    batches = [loop.to_device(stream.batch_at(first + i), device)
+               for i in range(steps)]
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    out = []
+    events[0].record()
+    ops, host_ms = [], []
+    for i, b in enumerate(batches):
+        gen = loop.step_generator(device, first + i)
+        t0 = time.perf_counter()
+        if count:
+            res = {}
+            ops.append(aten_ops(torch, lambda: res.update(
+                r=step_fn(params, opt, b, gen))))
+            params, opt, m = res["r"]
+        else:
+            params, opt, m = step_fn(params, opt, b, gen)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        events[i + 1].record()
+        out.append(m)
+    torch.cuda.synchronize()
+    records = []
+    for i, m in enumerate(out):
+        want_lr = adamw.schedule(opt_cfg, torch.tensor(
+            first + i + 1, dtype=torch.int32, device=device))
+        check(bool(torch.isfinite(m["loss"])) and
+              bool(torch.isfinite(m["gnorm"])),
+              f"{cfg.name}: step {first + i} loss or gnorm not finite")
+        check(torch.equal(m["lr"], want_lr),
+              f"{cfg.name}: step {first + i} lr off the schedule")
+        r = {k: float(v) for k, v in m.items()}
+        if timed:
+            r["ms"] = events[i].elapsed_time(events[i + 1])
+            r["host_ms"] = host_ms[i]
+        if count:
+            r["aten_ops"] = ops[i]
+        records.append(r)
+    return params, opt, records
+
+
+def lm_train_full(torch, cfg, device, seed, batch, seq, timed) -> dict:
+    """``cfg`` at its published size: init from a seeded generator on the
+    card, AdamW state on top, a warm-up step, a step under the ATen op
+    counter, ``timed`` steps under CUDA events; the checks of
+    ``train_steps``, the step-0 loss against a separate ``loss_fn``, and
+    the loss on step 0's batch lower after the steps."""
+    from repro_torch.models import model as mm
+    from repro_torch.models import params as pp
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = pp.init_params(cfg, torch.Generator(device=device).manual_seed(
+        seed), device=device)
+    opt = adamw.init_state(params)
+    torch.cuda.synchronize()
+    out = dict(arch=cfg.name, layers=cfg.num_layers,
+               params=pp.count_params_config(cfg),
+               init_s=time.perf_counter() - t0,
+               static_gb=torch.cuda.memory_allocated() / 1e9,
+               batch=batch, seq=seq, tokens_per_step=batch * seq)
+    stream = train_stream(cfg, batch, seq, seed)
+    b0 = loop.to_device(stream.batch_at(0), device)
+    with torch.no_grad():
+        loss0 = float(mm.loss_fn(params, cfg, b0)[0])
+    total = 2 + timed
+    t0 = time.perf_counter()
+    params, opt, warm = train_steps(torch, cfg, params, opt, stream, 1,
+                                    device, total=total)
+    out["warmup_s"] = time.perf_counter() - t0
+    out["loss_before"] = loss0
+    out["step0_loss_vs_loss_fn"] = abs(warm[0]["loss"] - loss0)
+    check(out["step0_loss_vs_loss_fn"] <= TRAIN_LOSS_SELF_TOL,
+          f"{cfg.name}: the step's loss {warm[0]['loss']} is not loss_fn's "
+          f"{loss0}")
+    params, opt, cnt = train_steps(torch, cfg, params, opt, stream, 1,
+                                   device, first=1, total=total, count=True)
+    out["aten_ops_per_step"] = cnt[0]["aten_ops"]
+    t0 = time.perf_counter()
+    params, opt, steps = train_steps(torch, cfg, params, opt, stream, timed,
+                                     device, first=2, total=total, timed=True)
+    wall = time.perf_counter() - t0
+    ms = [r["ms"] for r in steps]
+    out["ms_per_step"] = float(np.median(ms))
+    out["ms_all"] = ms
+    # the host's own time to issue a step (it returns before the card is
+    # done unless the launch queue fills)
+    out["host_issue_ms"] = [r["host_ms"] for r in steps]
+    out["host_wall_ms_per_step"] = wall * 1e3 / timed
+    out["tokens_per_s"] = batch * seq * 1000.0 / out["ms_per_step"]
+    out.update(train_bound_ms(cfg, batch, seq))
+    out["bound_share"] = out["bound_ms"] / out["ms_per_step"]
+    out["steps"] = [{k: r[k] for k in ("loss", "gnorm", "lr")}
+                    for r in warm + cnt + steps]
+    with torch.no_grad():
+        out["loss_after"] = float(mm.loss_fn(params, cfg, b0)[0])
+    check(out["loss_after"] < loss0,
+          f"{cfg.name}: loss on step 0's batch {loss0} -> "
+          f"{out['loss_after']}")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    total = torch.cuda.get_device_properties(device).total_memory
+    out["card_gb"] = total / 1e9
+    check(torch.cuda.max_memory_allocated() < total,
+          f"{cfg.name}: peak memory over the card's")
+    return out
+
+
+def lm_train_cut(torch, cfg, device, seed, batch, seq) -> dict:
+    """One pattern unit at full width, bf16 weights: TRAIN_CUT_STEPS steps
+    at grad_accum TRAIN_CUT_ACCUM, each checked by ``train_steps``."""
+    from repro_torch.models import params as pp
+    from repro_torch.optim import adamw
+    torch.cuda.reset_peak_memory_stats()
+    params = pp.init_params(cfg, torch.Generator(device=device).manual_seed(
+        seed), device=device)
+    opt = adamw.init_state(params)
+    _, _, steps = train_steps(torch, cfg, params, opt,
+                              train_stream(cfg, batch, seq, seed),
+                              TRAIN_CUT_STEPS, device,
+                              grad_accum=TRAIN_CUT_ACCUM, timed=True)
+    return dict(arch=cfg.name, layers=cfg.num_layers,
+                params=pp.count_params_config(cfg),
+                steps=[{k: r[k] for k in ("loss", "gnorm", "lr", "ms")}
+                       for r in steps],
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def rel_to_max(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def lm_train_card_vs_cpu(torch, cfg, device, seed, batch, seq) -> dict:
+    """One step on the card and one on the CPU, the port's own code on
+    both, from the same weights (drawn on the CPU) and batch: the loss,
+    gnorm, m, v and the parameters within CARD_CPU_TOL."""
+    from repro_torch.models import params as pp
+    from repro_torch.optim import adamw
+    cpu = torch.device("cpu")
+    stream = train_stream(cfg, batch, seq, seed)
+    host = pp.init_params(cfg, torch.Generator().manual_seed(seed),
+                          device=cpu)
+    card = pp.tree_map(lambda t: t.to(device, copy=True), host)
+    runs = {}
+    for name, dev, params in (("card", device, card), ("cpu", cpu, host)):
+        t0 = time.perf_counter()
+        params, opt, (r,) = train_steps(
+            torch, cfg, params, adamw.init_state(params), stream, 1, dev)
+        runs[name] = (params, opt, r, time.perf_counter() - t0)
+    (pc, oc, rc, sc), (ph, oh, rh, sh) = runs["card"], runs["cpu"]
+    lr = rh["lr"]
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "batch": batch,
+           "seq": seq, "card_s": sc, "cpu_s": sh,
+           "loss": [rc["loss"], rh["loss"]],
+           "gnorm": [rc["gnorm"], rh["gnorm"]], "tolerance": CARD_CPU_TOL}
+    check(abs(rc["loss"] - rh["loss"]) <= CARD_CPU_TOL["loss"],
+          f"card against CPU: loss {rc['loss']} / {rh['loss']}")
+    check(abs(rc["gnorm"] / rh["gnorm"] - 1) <= CARD_CPU_TOL["gnorm"],
+          f"card against CPU: gnorm {rc['gnorm']} / {rh['gnorm']}")
+    worst = {"m": 0.0, "v": 0.0, "param_lr": 0.0}
+    for key, a_tree, b_tree in (("m", oc.m, oh.m), ("v", oc.v, oh.v)):
+        for a, b in zip(pp.tree_leaves(a_tree), pp.tree_leaves(b_tree)):
+            worst[key] = max(worst[key], rel_to_max(a.cpu(), b))
+    over = 0.0
+    moved = total = 0
+    for a, b in zip(pp.tree_leaves(pc), pp.tree_leaves(ph)):
+        diff = (a.cpu().float() - b.float()).abs()
+        ulp = bf16_ulp(torch, b)
+        worst["param_lr"] = max(worst["param_lr"], float(diff.max()) / lr)
+        over = max(over, float((diff - CARD_CPU_TOL["param_lr"] * lr
+                                - ulp).max()))
+        moved += int((diff > ulp).sum())
+        total += diff.numel()
+    out["worst"] = worst
+    out["param_over_bound"] = over
+    out["moved_share"] = moved / total
+    for key in ("m", "v"):
+        check(worst[key] <= CARD_CPU_TOL[key],
+              f"card against CPU: {key} {worst[key]}")
+    check(over <= 0, f"card against CPU: a parameter {over} past 2 lr and "
+          f"an ulp")
+    check(moved <= CARD_CPU_TOL["max_moved"] * total,
+          f"card against CPU: {moved} of {total} parameters more than an "
+          f"ulp apart")
+    return out
+
+
+def bf16_ulp(torch, t):
+    """One bf16 ulp of each value: 2**-7 of the power of two at or below
+    |t| (the least normal's below it)."""
+    e = torch.floor(torch.log2(t.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def lm_train_restart(torch, cfg, device, seed, batch, seq, ckpt_dir) -> dict:
+    """4 steps through ``train_loop`` with a checkpoint after step 2, then
+    ``elastic.resume`` onto a one-device mesh and steps 2-3 again: the
+    losses equal at RESTART_RTOL."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import elastic, loop
+    mesh = one_device_mesh(device)
+    run = loop.RunConfig(fsdp=False, remat=True)
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=4)
+    stream = train_stream(cfg, batch, seq, seed)
+    first, again = {}, {}
+    t0 = time.perf_counter()
+    params, opt, _ = loop.train_loop(
+        cfg, opt_cfg, mesh, stream, 2, run, checkpoint_dir=ckpt_dir,
+        checkpoint_every=2, on_metrics=lambda s, m: first.update({s: m}))
+    loop.train_loop(cfg, opt_cfg, mesh, stream, 4, run, start_step=2,
+                    params=params, opt_state=opt,
+                    on_metrics=lambda s, m: first.update({s: m}))
+    del params, opt
+    ckpt.wait_for_writes()
+    t1 = time.perf_counter()
+    params, opt, step = elastic.resume(cfg, opt_cfg, ckpt_dir, mesh, run)
+    restore_s = time.perf_counter() - t1
+    check(step == 2, f"restart: resumed at step {step}")
+    loop.train_loop(cfg, opt_cfg, mesh, stream, 4, run, start_step=step,
+                    params=params, opt_state=opt,
+                    on_metrics=lambda s, m: again.update({s: m}))
+    out = {"losses": [first[s]["loss"] for s in range(4)],
+           "resumed_losses": [again[s]["loss"] for s in (2, 3)],
+           "restore_s": restore_s, "total_s": time.perf_counter() - t0,
+           "rtol": RESTART_RTOL}
+    for s in (2, 3):
+        check(abs(again[s]["loss"] - first[s]["loss"])
+              <= RESTART_RTOL * abs(first[s]["loss"]),
+              f"restart: step {s} loss {again[s]['loss']} against "
+              f"{first[s]['loss']}")
+    return out
+
+
+def free_card(torch) -> float:
+    """Release what earlier phases left cached; the GB still allocated."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def lm_train_phase(torch, device, seed, ckpt_dir=None) -> dict:
+    """The LM training path: ``LM_FULL_ARCH`` at its published size, then
+    every arch at its published widths cut to one pattern unit (those
+    whose AdamW state with accumulators fits on the card), then the
+    card-against-CPU step and the restart on ``LM_FULL_ARCH`` cut to one
+    layer.  The path reaches none of the port's CUDA kernels: their
+    launch counts must not move."""
+    from repro_torch.configs.registry import ARCH_IDS, get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.models import params as pp
+
+    before = dict(_lib.launch_counts)
+    out = {"held_gb_before": free_card(torch)}
+    cfg = get_config(LM_FULL_ARCH)
+    out["full"] = lm_train_full(torch, cfg, device, seed, TRAIN_BATCH,
+                                TRAIN_SEQ, TRAIN_TIMED)
+    free_card(torch)
+    total = torch.cuda.get_device_properties(device).total_memory
+    archs, skipped = [], []
+    for arch in ARCH_IDS:
+        cut = lm_cut(get_config(arch))
+        n = pp.count_params_config(cut)
+        need = (STEP_BYTES + ACCUM_BYTES) * n
+        if need > total:
+            skipped.append({"arch": arch, "params": n,
+                            "static_gb": STEP_BYTES * n / 1e9,
+                            "with_accumulators_gb": need / 1e9})
+            continue
+        r = lm_train_cut(torch, cut, device, seed, TRAIN_BATCH, TRAIN_SEQ)
+        r["reduced"] = {"num_layers": [get_config(arch).num_layers,
+                                       cut.num_layers]}
+        archs.append(r)
+        free_card(torch)
+    out["archs"], out["skipped"] = archs, skipped
+    one = dataclasses.replace(cfg, num_layers=1)
+    out["card_vs_cpu"] = lm_train_card_vs_cpu(
+        torch, one, device, seed, TRAIN_SMALL_BATCH, TRAIN_SMALL_SEQ)
+    free_card(torch)
+    with tempfile.TemporaryDirectory(dir=ckpt_dir) as d:
+        out["restart"] = lm_train_restart(torch, one, device, seed,
+                                          TRAIN_SMALL_BATCH,
+                                          TRAIN_SMALL_SEQ, d)
+    check(_lib.launch_counts == before,
+          "the LM training path launched a sparse kernel")
+    out["grad_accum_cut"] = TRAIN_CUT_ACCUM
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1509,6 +1902,11 @@ def run_phases(torch, device, seed, artifact_dir) -> int:
     lm = lm_serve_phase(torch, device, seed + 3)
     lm["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"lm_serve": lm}))
+    del lm
+    t0 = time.perf_counter()
+    train = lm_train_phase(torch, device, seed + 4, artifact_dir)
+    train["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"lm_train": train}))
     summary = []
     for name in _lib.KERNELS:
         check(totals[name] > 0, f"{name} was never launched on the main path")

@@ -1,1 +1,1 @@
-"""Synthetic matrix generators (copies of ``repro.data``)."""
+"""Synthetic matrices and the token stream (copies of ``repro.data``)."""

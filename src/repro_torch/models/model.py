@@ -12,13 +12,14 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ops import resolve_device
 
 from .config import ModelConfig
 from .griffin import rglru_block
 from .layers import attention_block, ffn_block, linear, rms_norm
-from .moe import moe_ffn, shared_ffn
+from .moe import moe_ffn, shared_ffn, shuffle_perm
 from .params import slstm_inner, tree_map
 from .xlstm import mlstm_block, slstm_block
 
@@ -37,8 +38,9 @@ def _ffn_params(p):
 def block_apply(kind: str, p: Tree, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, *, cache=None, cache_len=None,
                 decode: bool = False, prefix_len: int = 0,
-                generator: Optional[torch.Generator] = None):
-    """Returns (x, new_cache, aux_loss)."""
+                perm: Optional[torch.Tensor] = None):
+    """Returns (x, new_cache, aux_loss).  ``perm``: the Valiant shuffle's
+    token permutation for a MoE block."""
     aux = torch.zeros((), dtype=F32, device=x.device)
     if kind in ("attn", "local_attn", "moe"):
         window = cfg.attn_window if kind == "local_attn" else None
@@ -48,7 +50,7 @@ def block_apply(kind: str, p: Tree, x: torch.Tensor, cfg: ModelConfig,
         x = x + h
         if kind == "moe" and "router" in p:
             y, aux = moe_ffn(p, rms_norm(x, p["norm2"]), cfg.moe,
-                             cfg.activation, generator=generator)
+                             cfg.activation, perm=perm)
             if "s_gate" in p:
                 y = y + shared_ffn(
                     {"w_gate": p["s_gate"], "w_up": p["s_up"],
@@ -156,23 +158,37 @@ def _store(cache: tuple, new: tuple) -> None:
             dst.copy_(src)
 
 
+def _shuffle_perm(cfg: ModelConfig, x: torch.Tensor,
+                  generator: Optional[torch.Generator]):
+    """The Valiant shuffle's token permutation, drawn once a pass and
+    shared by every MoE layer, as the reference's one key is.  Drawn
+    outside the checkpointed units, so that their recompute sees it too
+    (checkpointing restores the default RNG states, never a generator's).
+    None where the shuffle is off."""
+    if cfg.moe is None or not cfg.moe.valiant_shuffle:
+        return None
+    return shuffle_perm(x.shape[0] * x.shape[1], x.device, generator)
+
+
 def _apply_stack(params: Tree, x: torch.Tensor, cfg: ModelConfig,
                  positions, *, caches=None, cache_len=None, decode=False,
-                 prefix_len=0, generator=None):
+                 prefix_len=0, generator=None, remat=False):
     """Run prefix layers, the stacked super-block units, then tail layers.
-    Caches, where given, are updated in place.  Returns (x, aux_loss)."""
-    unit, n_units, tail_kinds = _layout(cfg)
+    Caches, where given, are updated in place.  ``remat`` recomputes each
+    stacked unit on the backward pass instead of saving its activations
+    (prefix and tail layers are not checkpointed, as in the reference).
+    Returns (x, aux_loss)."""
+    unit, _, tail_kinds = _layout(cfg)
+    perm = _shuffle_perm(cfg, x, generator)
     aux_total = torch.zeros((), dtype=F32, device=x.device)
 
     def run(kind, p, x, cache):
-        nonlocal aux_total
         x, nc, aux = block_apply(kind, p, x, cfg, positions, cache=cache,
                                  cache_len=cache_len, decode=decode,
-                                 prefix_len=prefix_len, generator=generator)
+                                 prefix_len=prefix_len, perm=perm)
         if cache is not None:
             _store(cache, nc)
-        aux_total = aux_total + aux
-        return x
+        return x, aux
 
     def get_cache(group, name, u=None):
         if caches is None:
@@ -182,16 +198,36 @@ def _apply_stack(params: Tree, x: torch.Tensor, cfg: ModelConfig,
 
     for j in range(cfg.dense_first_layers):
         name = f"p{j}_{unit[0]}"
-        x = run(unit[0], params["prefix"][name], x,
-                get_cache("prefix", name))
-    for u in range(n_units):
-        for j, kind in enumerate(unit):
-            name = f"u{j}_{kind}"
-            p = {k: v[u] for k, v in params["stack"][name].items()}
-            x = run(kind, p, x, get_cache("stack", name, u))
+        x, aux = run(unit[0], params["prefix"][name], x,
+                     get_cache("prefix", name))
+        aux_total = aux_total + aux
+    names = [f"u{j}_{kind}" for j, kind in enumerate(unit)]
+    keys = [(n, k) for n in names for k in sorted(params["stack"][n])]
+
+    def unit_fn(u, x, *leaves):
+        p = {n: {} for n in names}
+        for (n, k), t in zip(keys, leaves):
+            p[n][k] = t
+        aux = None
+        for n, kind in zip(names, unit):
+            x, a = run(kind, p[n], x, get_cache("stack", n, u))
+            aux = a if aux is None else aux + a
+        return x, aux
+
+    # One unbind per stacked leaf: its backward stacks the units'
+    # gradients once, where indexing v[u] would add a zero-filled
+    # gradient of the whole stacked leaf for every unit.
+    for u, leaves in enumerate(zip(*(torch.unbind(params["stack"][n][k])
+                                     for n, k in keys))):
+        if remat and caches is None:
+            x, aux = checkpoint(unit_fn, u, x, *leaves, use_reentrant=False)
+        else:
+            x, aux = unit_fn(u, x, *leaves)
+        aux_total = aux_total + aux
     for j, kind in enumerate(tail_kinds):
         name = f"t{j}_{kind}"
-        x = run(kind, params["tail"][name], x, get_cache("tail", name))
+        x, aux = run(kind, params["tail"][name], x, get_cache("tail", name))
+        aux_total = aux_total + aux
     return x, aux_total
 
 
@@ -244,20 +280,25 @@ def logits_from_hidden(params: Tree, cfg: ModelConfig, x: torch.Tensor):
 
 
 def forward(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            *, generator: Optional[torch.Generator] = None, scan_unroll=1):
-    """(logits, aux).  ``scan_unroll`` only steers XLA in the reference and
-    is ignored."""
+            *, generator: Optional[torch.Generator] = None,
+            remat: bool = False, scan_unroll=1):
+    """(logits, aux).  ``generator`` draws the Valiant shuffle's
+    permutation; ``remat`` checkpoints each stacked pattern unit
+    (``torch.utils.checkpoint``).  ``scan_unroll`` only steers XLA in the
+    reference and is ignored."""
     x, positions, prefix_len = embed_inputs(params, cfg, batch)
     x, aux = _apply_stack(params, x, cfg, positions, prefix_len=prefix_len,
-                          generator=generator)
+                          generator=generator, remat=remat)
     return logits_from_hidden(params, cfg, x), aux
 
 
 def loss_fn(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            *, generator: Optional[torch.Generator] = None, scan_unroll=1):
+            *, generator: Optional[torch.Generator] = None,
+            remat: bool = False, scan_unroll=1):
     """(loss + aux, {"ce", "aux"}): masked mean cross entropy (labels < 0
-    are masked) plus the MoE aux loss.  The value only."""
-    logits, aux = forward(params, cfg, batch, generator=generator)
+    are masked) plus the MoE aux loss; differentiable with autograd."""
+    logits, aux = forward(params, cfg, batch, generator=generator,
+                          remat=remat)
     labels = batch["labels"].long()
     if cfg.frontend == "siglip_stub":
         logits = logits[:, cfg.prefix_len:]

@@ -45,34 +45,44 @@ def route(params, x2d: torch.Tensor, cfg: MoEConfig):
     return weights, ids, zloss
 
 
+def shuffle_perm(tokens: int, device,
+                 generator: Optional[torch.Generator] = None):
+    """The Valiant shuffle's permutation of ``tokens`` tokens, drawn from
+    ``generator`` (a generator seeded with 0 when none is given)."""
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    return torch.randperm(tokens, generator=generator, device=device)
+
+
 def moe_ffn(params, x: torch.Tensor, cfg: MoEConfig, activation: str,
             *, generator: Optional[torch.Generator] = None,
+            perm: Optional[torch.Tensor] = None,
             combine: str = "scatter_psum"):
     """x: (B, S, d) -> (B, S, d), aux-loss scalar.
 
     Expert tensors: params["w_gate"|"w_up"]: (E, d, f), params["w_down"]:
-    (E, f, d).  ``generator`` draws the Valiant shuffle's permutation
-    (``cfg.valiant_shuffle``; a generator seeded with 0 when none is
-    given).  ``combine``: ``"scatter_psum"`` scatter-adds the weighted
-    bf16 expert rows into token order (``index_put_`` with accumulate:
-    in slot order on the CPU, as the reference adds them; on CUDA
-    PyTorch sorts the indices first, so the order differs from the
-    CPU's but repeats from call to call), ``"gather"`` gathers each
-    (token, k) row and sums in f32.
+    (E, f, d).  ``perm`` is the Valiant shuffle's token permutation
+    (``cfg.valiant_shuffle``); without one, ``shuffle_perm`` draws it
+    from ``generator``.  ``combine``:
+    ``"scatter_psum"`` scatter-adds the weighted bf16 expert rows into
+    token order (``index_put_`` with accumulate: in slot order on the
+    CPU, as the reference adds them; on CUDA PyTorch sorts the indices
+    first, so the order differs from the CPU's but repeats from call to
+    call), ``"gather"`` gathers each (token, k) row and sums in f32.
     """
     B, S, d = x.shape
     T = B * S
     dev = x.device
     x2d = x.reshape(T, d)
 
-    perm = None
     if cfg.valiant_shuffle:
         # Permute the token order entering dispatch so same-expert runs
         # decorrelate (the paper's random reordering).
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        perm = torch.randperm(T, generator=generator, device=dev)
+        if perm is None:
+            perm = shuffle_perm(T, dev, generator)
         x2d = x2d[perm]
+    else:
+        perm = None
 
     weights, ids, zloss = route(params, x2d, cfg)
     sp = cfg.expert_split

@@ -213,13 +213,18 @@ def _map_shapes(fn: Callable, tree, path=()):
     return {k: _map_shapes(fn, tree[k], path + (k,)) for k in sorted(tree)}
 
 
-def tree_map(fn: Callable, tree):
-    """``fn`` on every tensor of a nested dict / tuple tree."""
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` on every tensor of a nested dict / tuple / NamedTuple tree,
+    with the matching leaves of ``rest`` (trees of the same structure) as
+    further arguments."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        out = [tree_map(fn, *vs) for vs in zip(tree, *rest)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else \
+            type(tree)(out)
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
@@ -228,6 +233,22 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (tuple, list)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_unflatten(like, leaves) -> Tree:
+    """A tree of ``like``'s structure holding ``leaves``, taken in
+    ``tree_leaves``'s order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            built = {k: build(t[k]) for k in sorted(t)}
+            return {k: built[k] for k in t}
+        if isinstance(t, (tuple, list)):
+            out = [build(v) for v in t]
+            return type(t)(*out) if hasattr(t, "_fields") else type(t)(out)
+        return next(it)
+    return build(like)
 
 
 def abstract_params(cfg: ModelConfig) -> Tree:

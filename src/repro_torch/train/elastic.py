@@ -1,0 +1,48 @@
+"""Elastic restart: node failure -> smaller mesh -> restore -> continue.
+
+As in ``repro.train.elastic``: ``shrink_mesh`` rebuilds the largest
+(data, model) mesh from the surviving devices with the model-axis width
+kept, and ``resume`` restores the latest checkpoint onto the new mesh
+(the checkpoint stores full logical arrays), from the same step; the
+counter-based token stream replays the exact batch sequence.  On this
+slice the new mesh must hold one device (``train.loop.mesh_device``).
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models import params as pp
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim import adamw
+from repro_torch.train import checkpoint as ckpt
+from repro_torch.train.loop import RunConfig, mesh_device, param_shardings
+
+
+def shrink_mesh(devices: Sequence[torch.device], model_parallel: int,
+                *, axis_names=("data", "model")) -> Mesh:
+    """Largest (data, model) mesh from surviving devices; TP width fixed."""
+    n = len(devices)
+    if n < model_parallel:
+        raise RuntimeError(
+            f"only {n} devices survive; cannot keep TP={model_parallel}")
+    data = n // model_parallel
+    return Mesh(tuple(axis_names), (data, model_parallel),
+                tuple(devices[: data * model_parallel]))
+
+
+def resume(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, ckpt_dir: str,
+           new_mesh: Mesh, run: RunConfig = RunConfig()):
+    """(params, opt_state, step) of the latest checkpoint, on
+    ``new_mesh``'s device."""
+    step = ckpt.latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    param_shardings(cfg, new_mesh, run)
+    abstract = {"params": pp.abstract_params(cfg)}
+    abstract["opt"] = adamw.abstract_state(abstract["params"])
+    state, step = ckpt.restore(ckpt_dir, step, abstract,
+                               device=mesh_device(new_mesh))
+    return state["params"], state["opt"], step
