@@ -10,8 +10,9 @@ points (``lower``, ``make_program_spmv_fn``, ``gather_b``), a
 ``kernel_api`` phase through the per-format kernel API
 (``repro_torch.kernels``), a ``serving`` phase through the router
 (``repro_torch.serve``), an ``lm_serve`` phase through the LM
-``Engine`` and an ``lm_train`` phase through ``make_train_step`` and
-``train_loop``:
+``Engine``, an ``lm_train`` phase through ``make_train_step`` and
+``train_loop``, and an ``lm_train_sharded`` phase through the sharded
+step on a ``torch.distributed`` mesh:
 
 * ``planner``: ``autotune(make_matrix("cop20k_A"), num_shards=8)`` at
   the full Table-I size (120,000 rows) with the default probe must pick
@@ -102,7 +103,19 @@ points (``lower``, ``make_program_spmv_fn``, ``gather_b``), a
   and 4 steps through ``train_loop`` with a checkpoint after step 2,
   resumed through ``elastic.resume`` (steps 2-3's losses within
   ``RESTART_RTOL``).  The training path must launch none of the sparse
-  kernels.  Prints one ``{"lm_train": ...}`` line.
+  kernels.  Prints one ``{"lm_train": ...}`` line;
+* ``lm_train_sharded``: a world-size-1 NCCL process group (a
+  ``FileStore`` in a temporary directory) and the port's host mesh over
+  it, (1, 1); qwen3-4b at its published size with ``fsdp=True`` takes
+  ``lm_train``'s six steps (the same seed, batches and schedule) through
+  the sharded step (per-unit gathers, reduce-scattered gradients, the
+  global norm), every loss, gnorm and lr held to ``lm_train``'s within
+  ``CARD_CPU_TOL`` (``bitwise`` says whether they are equal), ms a
+  step, ATen ops a step and peak memory beside ``lm_train``'s; then
+  ``launch/dryrun.py`` over its whole grid on both production meshes
+  (no cell may fail).  No fallback: a failed group or collective fails
+  the run; no sparse kernel may launch.  Prints one
+  ``{"lm_train_sharded": ...}`` line.
 
 Each program or API call answers four single vectors and one (N, 8)
 block with the launch counts zeroed just before and read just after,
@@ -1513,20 +1526,22 @@ def train_stream(cfg, batch, seq, seed):
 
 
 def train_steps(torch, cfg, params, opt, stream, steps, device, *,
-                grad_accum=1, first=0, total=None, timed=False, count=False):
+                grad_accum=1, first=0, total=None, timed=False, count=False,
+                mesh=None, fsdp=False):
     """``steps`` steps of ``make_train_step`` (remat on) from step
     ``first`` of a ``total``-step schedule (``first + steps`` when None),
     each checked: finite loss and gnorm, ``lr`` equal to ``schedule`` of
     the step on its device.  Returns (params, opt, per-step records);
     ``timed``: each step's ms under CUDA events and the host's ms to
-    issue it; ``count``: each step's ATen ops."""
+    enqueue it; ``count``: each step's ATen ops.  ``mesh``: the mesh to
+    train on (the one-device mesh when None)."""
     from repro_torch.optim import adamw
     from repro_torch.train import loop
     opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=1,
                                 total_steps=total or first + steps)
     step_fn, _, _ = loop.make_train_step(
-        cfg, opt_cfg, one_device_mesh(device),
-        loop.RunConfig(fsdp=False, remat=True, grad_accum=grad_accum))
+        cfg, opt_cfg, mesh or one_device_mesh(device),
+        loop.RunConfig(fsdp=fsdp, remat=True, grad_accum=grad_accum))
     batches = [loop.to_device(stream.batch_at(first + i), device)
                for i in range(steps)]
     events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
@@ -1566,6 +1581,29 @@ def train_steps(torch, cfg, params, opt, stream, steps, device, *,
     return params, opt, records
 
 
+def lm_train_steps_like(torch, cfg, params, opt, stream, device, timed,
+                        **kw) -> tuple:
+    """``lm_train_full``'s step sequence: a warm-up step, a step under the
+    ATen op counter, ``timed`` steps under CUDA events.  Returns (params,
+    opt, {"warm", "count", "timed": their records, "warmup_s",
+    "timed_wall_s": host seconds})."""
+    total = 2 + timed
+    t0 = time.perf_counter()
+    params, opt, warm = train_steps(torch, cfg, params, opt, stream, 1,
+                                    device, total=total, **kw)
+    warmup_s = time.perf_counter() - t0
+    params, opt, cnt = train_steps(torch, cfg, params, opt, stream, 1,
+                                   device, first=1, total=total, count=True,
+                                   **kw)
+    t0 = time.perf_counter()
+    params, opt, steps = train_steps(torch, cfg, params, opt, stream, timed,
+                                     device, first=2, total=total,
+                                     timed=True, **kw)
+    return params, opt, {"warm": warm, "count": cnt, "timed": steps,
+                         "warmup_s": warmup_s,
+                         "timed_wall_s": time.perf_counter() - t0}
+
+
 def lm_train_full(torch, cfg, device, seed, batch, seq, timed) -> dict:
     """``cfg`` at its published size: init from a seeded generator on the
     card, AdamW state on top, a warm-up step, a step under the ATen op
@@ -1593,23 +1631,17 @@ def lm_train_full(torch, cfg, device, seed, batch, seq, timed) -> dict:
     b0 = loop.to_device(stream.batch_at(0), device)
     with torch.no_grad():
         loss0 = float(mm.loss_fn(params, cfg, b0)[0])
-    total = 2 + timed
-    t0 = time.perf_counter()
-    params, opt, warm = train_steps(torch, cfg, params, opt, stream, 1,
-                                    device, total=total)
-    out["warmup_s"] = time.perf_counter() - t0
+    params, opt, run = lm_train_steps_like(torch, cfg, params, opt, stream,
+                                           device, timed)
+    warm, cnt, steps = run["warm"], run["count"], run["timed"]
+    out["warmup_s"] = run["warmup_s"]
     out["loss_before"] = loss0
     out["step0_loss_vs_loss_fn"] = abs(warm[0]["loss"] - loss0)
     check(out["step0_loss_vs_loss_fn"] <= TRAIN_LOSS_SELF_TOL,
           f"{cfg.name}: the step's loss {warm[0]['loss']} is not loss_fn's "
           f"{loss0}")
-    params, opt, cnt = train_steps(torch, cfg, params, opt, stream, 1,
-                                   device, first=1, total=total, count=True)
     out["aten_ops_per_step"] = cnt[0]["aten_ops"]
-    t0 = time.perf_counter()
-    params, opt, steps = train_steps(torch, cfg, params, opt, stream, timed,
-                                     device, first=2, total=total, timed=True)
-    wall = time.perf_counter() - t0
+    wall = run["timed_wall_s"]
     ms = [r["ms"] for r in steps]
     out["ms_per_step"] = float(np.median(ms))
     out["ms_all"] = ms
@@ -1819,6 +1851,110 @@ def lm_train_phase(torch, device, seed, ckpt_dir=None) -> dict:
     return out
 
 
+def dryrun_grid() -> dict:
+    """``launch/dryrun.py`` over the whole grid on both production meshes
+    (its per-cell lines kept out of this script's output): the counts of
+    ok, skip and fail, the host seconds, and the qwen3-4b train cell's
+    bytes a device."""
+    import io
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = dryrun.main(["--multi-pod", "both"])
+    except SystemExit:
+        res = None
+    check(res is not None, "the dry run failed a cell:\n" +
+          "\n".join(ln for ln in buf.getvalue().splitlines()
+                    if ln.startswith("FAIL")))
+    counts = {k: sum(r["status"] == k for r in res)
+              for k in ("ok", "skip", "fail")}
+    cell = {r["mesh"]: r for r in res if r["arch"] == LM_FULL_ARCH and
+            r["shape"] == "train_4k"}
+    return {"counts": counts, "host_s": time.perf_counter() - t0,
+            "cells": len(res),
+            "qwen3_4b_train_4k": {
+                m: {k: r[k] for k in ("bytes_per_device", "fsdp",
+                                      "collective_bytes_per_device",
+                                      "t_compute_s", "t_memory_s",
+                                      "t_collective_s", "bottleneck")}
+                for m, r in cell.items()}}
+
+
+def lm_train_sharded_phase(torch, device, seed, one) -> dict:
+    """The sharded training path on the card: a world-size-1 NCCL process
+    group (a ``FileStore`` in a temporary directory) and the port's host
+    mesh over it, (1, 1); ``LM_FULL_ARCH`` at its published size with
+    ``fsdp=True`` takes ``lm_train_full``'s steps (the same seed, batches
+    and schedule) through the sharded step, every loss, gnorm and lr held
+    to the one-device run's (``one``: ``lm_train``'s ``full`` record)
+    within ``CARD_CPU_TOL``, and whether they are bitwise; ms a step, ATen
+    ops a step and peak memory beside ``one``'s.  Then the dry run's
+    whole grid.  No fallback: a failed group or collective fails the run.
+    The path reaches none of the sparse kernels."""
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import params as pp
+    from repro_torch.train import loop
+
+    before = dict(_lib.launch_counts)
+    out = {"held_gb_before": free_card(torch)}
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(backend, store=dist.FileStore(
+            os.path.join(d, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh(device=device.type)
+            check(mesh.distributed and mesh.shape == {"data": 1, "model": 1}
+                  and dist.get_backend() == backend,
+                  f"the host mesh over the {backend} world: {mesh.shape}")
+            cfg = get_config(LM_FULL_ARCH)
+            run = loop.RunConfig(fsdp=True, remat=True)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params, opt = loop.init_sharded(
+                cfg, mesh, run,
+                torch.Generator(device=device).manual_seed(seed))
+            torch.cuda.synchronize()
+            out["init_s"] = time.perf_counter() - t0
+            out["static_gb"] = torch.cuda.memory_allocated() / 1e9
+            stream = train_stream(cfg, one["batch"], one["seq"], seed)
+            params, opt, done = lm_train_steps_like(
+                torch, cfg, params, opt, stream, device, TRAIN_TIMED,
+                mesh=mesh, fsdp=True)
+            del params, opt
+            out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        finally:
+            dist.destroy_process_group()
+    want = one["steps"]
+    out["steps"] = [{k: r[k] for k in ("loss", "gnorm", "lr")} for r in
+                    done["warm"] + done["count"] + done["timed"]]
+    out["bitwise"] = out["steps"] == want
+    out["loss_off"] = max(abs(a["loss"] - b["loss"])
+                          for a, b in zip(out["steps"], want))
+    out["gnorm_off"] = max(abs(a["gnorm"] / b["gnorm"] - 1)
+                           for a, b in zip(out["steps"], want))
+    check(len(out["steps"]) == len(want) and
+          out["loss_off"] <= CARD_CPU_TOL["loss"] and
+          out["gnorm_off"] <= CARD_CPU_TOL["gnorm"] and
+          all(a["lr"] == b["lr"] for a, b in zip(out["steps"], want)),
+          f"sharded steps {out['steps']} against one device's {want}")
+    ms = [r["ms"] for r in done["timed"]]
+    out.update(arch=cfg.name, mesh=mesh.shape, fsdp=True,
+               params=pp.count_params_config(cfg),
+               ms_per_step=float(np.median(ms)), ms_all=ms,
+               aten_ops_per_step=done["count"][0]["aten_ops"],
+               one_device={k: one[k] for k in (
+                   "ms_per_step", "aten_ops_per_step", "peak_gb")})
+    out["dryrun"] = dryrun_grid()
+    check(_lib.launch_counts == before,
+          "the sharded training path launched a sparse kernel")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1907,6 +2043,10 @@ def run_phases(torch, device, seed, artifact_dir) -> int:
     train = lm_train_phase(torch, device, seed + 4, artifact_dir)
     train["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"lm_train": train}))
+    t0 = time.perf_counter()
+    sharded = lm_train_sharded_phase(torch, device, seed + 4, train["full"])
+    sharded["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"lm_train_sharded": sharded}))
     summary = []
     for name in _lib.KERNELS:
         check(totals[name] > 0, f"{name} was never launched on the main path")

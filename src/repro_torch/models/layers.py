@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
+from .sharding import all_gather, all_reduce, block_index, local_block
 
 F32 = torch.float32
 
@@ -118,13 +119,20 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, length, *,
                      softcap: Optional[float] = None,
-                     window: Optional[int] = None) -> torch.Tensor:
+                     window: Optional[int] = None,
+                     seq_shard=None) -> torch.Tensor:
     """Single-token attention over a cache.
 
     q: (B, 1, H, D); caches: (B, T, Hkv, D); length: an int, or a () or
     (B,) tensor of valid lengths.  Scores in f32 in the kv-head layout
     (q grouped per kv head); the probabilities are rounded to bf16 before
     the PV product, which runs in f32, as in the reference.
+
+    ``seq_shard``: (mesh, axes) over which the caches' T dim is split
+    (the caches are this rank's block of positions).  The scores and the
+    masked softmax stay split; the max, the softmax's sum and the partial
+    outputs are reduced over ``axes``, as the reference's constraint of
+    the scores over "model" makes decode sequence-parallel.
     """
     B, _, H, D = q.shape
     T, Hkv = k_cache.shape[1], k_cache.shape[2]
@@ -133,28 +141,51 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     qg = qf.reshape(B, 1, Hkv, rep, D)
     s = torch.einsum("bqhrd,bthd->bhrqt", qg, k_cache.float())
     s = _softcap(s, softcap)
-    pos = torch.arange(T, device=q.device)[None, None, None, None]
+    start = 0 if seq_shard is None else _seq_start(seq_shard, T)
+    pos = torch.arange(start, start + T,
+                       device=q.device)[None, None, None, None]
     if torch.is_tensor(length):
         length = length.reshape(-1, 1, 1, 1, 1)
     valid = pos < length
     if window is not None:
         valid &= pos >= (length - window)
     s = torch.where(valid, s, float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)
+    m = _seq_reduce(s.amax(dim=-1, keepdim=True), seq_shard, "max")
     e = torch.exp(s - m)
-    l = e.sum(dim=-1, keepdim=True)
+    l = _seq_reduce(e.sum(dim=-1, keepdim=True), seq_shard, "sum")
     p = (e / l).to(torch.bfloat16)
     out = torch.einsum("bhrqt,bthd->bqhrd", p.float(), v_cache.float())
+    out = _seq_reduce(out, seq_shard, "sum")
     return out.reshape(B, 1, H, D).to(torch.bfloat16)
 
 
+def _seq_start(seq_shard, T_local: int) -> int:
+    """The first position of this rank's block of a split cache."""
+    return block_index(*seq_shard)[0] * T_local
+
+
+def _seq_reduce(t: torch.Tensor, seq_shard, op: str) -> torch.Tensor:
+    return t if seq_shard is None else all_reduce(t, *seq_shard, op)
+
+
 def attention_block(params, x, cfg: ModelConfig, positions, *,
-                    window=None, prefix_len=0, kv_cache=None, cache_len=None):
+                    window=None, prefix_len=0, kv_cache=None, cache_len=None,
+                    seq_shard=None, out_sum=None, head_shard=None):
     """Full attention block.  Returns (out, new_kv): new_kv is (k, v) for
     prefill, or for decode the cache tuple itself, written in place at
-    ``cache_len`` (an int)."""
+    ``cache_len`` (an int).  ``seq_shard``: see ``decode_attention``; the
+    new positions are written by the rank whose block holds them.
+    ``out_sum``: under tensor parallelism, the sum of the ranks' partial
+    output products, taken before the output is cast to ``x``'s dtype.
+    ``head_shard``: (mesh, axes) over which the projections' heads are
+    split (tensor parallelism); in decode every head's q, k and v are
+    gathered for the cache, which holds every head, and this rank's
+    heads of the attention output meet its block of ``wo``."""
     B, S, _ = x.shape
-    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    # the heads of the projections given: all of them, or this rank's
+    # block under tensor parallelism
+    Dh = cfg.head_dim
+    H, Hkv = params["wq"].shape[-1] // Dh, params["wk"].shape[-1] // Dh
     q = linear(x, params["wq"]).reshape(B, S, H, Dh)
     k = linear(x, params["wk"]).reshape(B, S, Hkv, Dh)
     v = linear(x, params["wv"]).reshape(B, S, Hkv, Dh)
@@ -169,25 +200,37 @@ def attention_block(params, x, cfg: ModelConfig, positions, *,
     k = rope(k, positions, cfg.rope_theta)
 
     if kv_cache is not None:
+        if head_shard is not None:
+            q, k, v = (all_gather(t, 2, *head_shard) for t in (q, k, v))
         k_cache, v_cache = kv_cache
-        T = k_cache.shape[1]
+        T_local = k_cache.shape[1]
+        start = 0 if seq_shard is None else _seq_start(seq_shard, T_local)
+        T = T_local * (1 if seq_shard is None else
+                       block_index(*seq_shard)[1])
         ring = window is not None and T <= window
         # Ring buffer for local attention: slot = pos % T; every resident
         # entry is in-window by construction, so no extra window mask.
         idx = cache_len % T if ring else cache_len
         # as in the reference, the start is clamped so the update fits
         idx = max(0, min(idx, T - S))
-        k_cache[:, idx: idx + S] = k
-        v_cache[:, idx: idx + S] = v
+        lo, hi = max(idx, start), min(idx + S, start + T_local)
+        if lo < hi:
+            k_cache[:, lo - start: hi - start] = k[:, lo - idx: hi - idx]
+            v_cache[:, lo - start: hi - start] = v[:, lo - idx: hi - idx]
         length = min(cache_len + S, T) if ring else cache_len + S
         out = decode_attention(q, k_cache, v_cache, length, softcap=None,
-                               window=None if ring else window)
+                               window=None if ring else window,
+                               seq_shard=seq_shard)
+        if head_shard is not None:
+            out = local_block(out, 2, *head_shard)
         new_kv = kv_cache
     else:
         out = chunked_attention(q, k, v, causal=True, window=window,
                                 prefix_len=prefix_len)
         new_kv = (k, v)
     out = linear(out.reshape(B, S, H * Dh), params["wo"])
+    if out_sum is not None:
+        out = out_sum(out)
     return out.to(x.dtype), new_kv
 
 

@@ -9,8 +9,14 @@ one expert at the same time.
 
 Dispatch is sort-based (no (tokens x E x capacity) one-hot): tokens are
 sorted by expert id, ranked within expert, and gathered into an
-(E, capacity, d) buffer — O(tokens * top_k) memory.  One card has no mesh,
-so the reference's sharding constraints have no counterpart here.
+(E, capacity, d) buffer — O(tokens * top_k) memory.
+
+Under a sharded step's placement the layer routes the global token set
+(every batch shard's rows, gathered), so capacity, ranks and drops are
+the one-device ones; the expert products are split as the reference
+constrains them: experts over "model" where E divides it (expert
+parallelism, deepseek), otherwise capacity over "data" (grok at a model
+axis that E does not divide).  Each rank then keeps its own rows.
 """
 from __future__ import annotations
 
@@ -21,8 +27,40 @@ import torch.nn.functional as F
 
 from .config import MoEConfig
 from .layers import promote
+from .sharding import active
 
 F32 = torch.float32
+
+
+def _constrain(x, *axes):
+    from .model import _maybe_constrain
+    return _maybe_constrain(x, *axes)
+
+
+def _ep_possible(num_experts: int) -> bool:
+    place = active()
+    return place is not None and "model" in place.mesh.shape and \
+        num_experts % place.mesh.shape["model"] == 0
+
+
+def _expert_axes(num_experts: int) -> tuple:
+    """(E, cap, d)-shaped buffers: expert-parallel over "model" when E
+    divides the axis; otherwise capacity over "data".  Never both, as in
+    the reference."""
+    if _ep_possible(num_experts):
+        return ("model", None, None)
+    return (None, "data", None)
+
+
+def _expert_constraint(t):
+    """This rank's experts or capacity slots of an (E, cap, d) buffer."""
+    return _constrain(t, *_expert_axes(t.shape[0]))
+
+
+def _expert_release(t, shape):
+    """Every rank's experts or slots of an (E, cap, d) buffer, gathered."""
+    from .model import _maybe_release
+    return _maybe_release(t, shape, *_expert_axes(shape[0]))
 
 
 def _capacity(tokens: int, cfg: MoEConfig) -> int:
@@ -34,14 +72,21 @@ def route(params, x2d: torch.Tensor, cfg: MoEConfig):
     """Router logits -> (weights, expert ids) per token, top-k.
 
     Ties go to the lower expert id, as ``lax.top_k`` breaks them (a stable
-    descending sort)."""
+    descending sort).  Under a placement whose batch is split, ``x2d``
+    holds every shard's tokens and the z-loss is this rank's share: its
+    own tokens' terms of the global mean, so that each token's gradient
+    is formed on the rank that owns it."""
     logits = x2d.float() @ params["router"].float()
     srt, order = torch.sort(logits, dim=-1, descending=True, stable=True)
     weights, ids = srt[:, : cfg.top_k], order[:, : cfg.top_k]   # (T, K)
     weights = torch.softmax(weights, dim=-1)
     # z-loss keeps router logits bounded (GShard/ST-MoE practice).
-    zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2) * \
-        cfg.router_zloss
+    sq = torch.logsumexp(logits, dim=-1) ** 2
+    place = active()
+    if place is None or not place.batch_sharded:
+        zloss = torch.mean(sq) * cfg.router_zloss
+    else:
+        zloss = place.own_rows(sq).sum() / sq.shape[0] * cfg.router_zloss
     return weights, ids, zloss
 
 
@@ -71,9 +116,12 @@ def moe_ffn(params, x: torch.Tensor, cfg: MoEConfig, activation: str,
     call), ``"gather"`` gathers each (token, k) row and sums in f32.
     """
     B, S, d = x.shape
-    T = B * S
     dev = x.device
-    x2d = x.reshape(T, d)
+    place = active()
+    x2d = x.reshape(B * S, d)
+    if place is not None:
+        x2d = place.gather_rows(x2d)        # every batch shard's tokens
+    T = x2d.shape[0]
 
     if cfg.valiant_shuffle:
         # Permute the token order entering dispatch so same-expert runs
@@ -119,16 +167,23 @@ def moe_ffn(params, x: torch.Tensor, cfg: MoEConfig, activation: str,
     tok_of_slot[slot] = torch.arange(T * K, device=dev) // K
     tok_of_slot = tok_of_slot[:trash]
     x_pad = torch.cat([x2d, x2d.new_zeros((1, d))], dim=0)
-    expert_in = x_pad[tok_of_slot].reshape(E, cap, d)
+    expert_in = _expert_constraint(x_pad[tok_of_slot].reshape(E, cap, d))
 
-    h_gate = torch.bmm(*promote(expert_in, params["w_gate"]))
-    h_up = torch.bmm(*promote(expert_in, params["w_up"]))
+    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
+    if _ep_possible(E) and wg.shape[0] == E:
+        # gathered whole (stored split inside each expert): this rank's
+        # experts; stored with the experts split, they are gathered as
+        # this rank's experts already
+        wg, wu, wd = (_constrain(w, "model", None, None)
+                      for w in (wg, wu, wd))
+    h_gate = torch.bmm(*promote(expert_in, wg))
+    h_up = torch.bmm(*promote(expert_in, wu))
     if activation == "geglu":
         act = F.gelu(h_gate.float(), approximate="tanh")
     else:
         act = F.silu(h_gate.float())
     h = act.to(x.dtype) * h_up
-    expert_out = torch.bmm(*promote(h, params["w_down"]))
+    expert_out = _expert_release(torch.bmm(*promote(h, wd)), (E, cap, d))
 
     flat_out = expert_out.reshape(E * cap, d)
     w_kept = weights * keep.reshape(T, K)
@@ -147,10 +202,16 @@ def moe_ffn(params, x: torch.Tensor, cfg: MoEConfig, activation: str,
 
     # Load-balance aux loss (Switch-style): mean prob * mean assignment.
     me = _one_hot(ids, E).mean(dim=(0, 1))
-    aux = torch.sum(me * me) * E * 1e-2 / max(sp, 1) + zloss
+    balance = torch.sum(me * me) * E * 1e-2 / max(sp, 1)
+    if place is not None and not place.batch_leader:
+        # no gradient: one rank's share carries it
+        balance = torch.zeros_like(balance)
+    aux = balance + zloss
 
     if perm is not None:
         y = y[torch.argsort(perm)]
+    if place is not None:
+        y = place.own_rows(y)
     return y.reshape(B, S, d), aux
 
 

@@ -12,8 +12,8 @@ The parameter tree mirrors the stacked layout of ``repro.models.params``::
 
 Each leaf of ``model_shape_tree`` is ``(shape, spec)``, where ``spec`` is a
 tuple of logical axis names (``"tp"``: model axis, ``"fsdp"``: data axis,
-``None``: replicated), one per dim.  One card has no mesh; the specs are
-kept for a multi-card layout.  Shapes are produced on the ``meta`` device
+``None``: replicated), one per dim; ``param_specs`` resolves them to mesh
+axes (``sharding.P``).  Shapes are produced on the ``meta`` device
 (``abstract_params``) and concretely (``init_params``) from a
 ``torch.Generator``; ``from_reference`` carries the reference's numpy
 tree across.
@@ -205,12 +205,17 @@ def _is_shape_leaf(t) -> bool:
     return isinstance(t, tuple) and isinstance(t[0], tuple)
 
 
-def _map_shapes(fn: Callable, tree, path=()):
-    """``fn(path, shape)`` on every leaf of a shape tree, dict keys in
-    sorted order (the order ``jax.tree.flatten`` visits them)."""
+def _map_leaves(fn: Callable, tree, path=()):
+    """``fn(path, (shape, spec))`` on every leaf of a shape tree, dict keys
+    in sorted order (the order ``jax.tree.flatten`` visits them)."""
     if _is_shape_leaf(tree):
-        return fn(path, tree[0])
-    return {k: _map_shapes(fn, tree[k], path + (k,)) for k in sorted(tree)}
+        return fn(path, tree)
+    return {k: _map_leaves(fn, tree[k], path + (k,)) for k in sorted(tree)}
+
+
+def _map_shapes(fn: Callable, tree):
+    """``fn(path, shape)`` on every leaf of a shape tree."""
+    return _map_leaves(lambda path, t: fn(path, t[0]), tree)
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -258,19 +263,57 @@ def abstract_params(cfg: ModelConfig) -> Tree:
         model_shape_tree(cfg))
 
 
+def param_specs(cfg: ModelConfig, *, fsdp: bool, data_axis="data",
+                model_axis="model") -> Tree:
+    """The spec tree with the logical axes resolved to mesh axes: "tp" to
+    ``model_axis``, "fsdp" to ``data_axis`` where ``fsdp`` (else
+    replicated)."""
+    from .sharding import P
+
+    def resolve(path, t):
+        out = []
+        for ax in t[1]:
+            if ax == "tp":
+                out.append(model_axis)
+            elif ax == "fsdp":
+                out.append(data_axis if fsdp else None)
+            else:
+                out.append(ax)
+        return P(*out)
+    return _map_leaves(resolve, model_shape_tree(cfg))
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
-                device="cuda") -> Tree:
+                device="cuda", keep: Callable = None) -> Tree:
     """Random parameters drawn from ``generator`` (which must live on
     ``device``): N(0, 1/fan_in) in float32, each leaf then cast to bf16.
-    As in the reference, every leaf is bf16, ``lam`` included."""
+    As in the reference, every leaf is bf16, ``lam`` included.  A stacked
+    leaf (under "stack") is drawn a unit at a time, so that one unit's
+    float32 draw at most is on the device.  ``keep`` (``keep(path,
+    leaf)`` -> what to hold of it, e.g. a rank's shard; for a stacked
+    leaf, of one unit's) is applied to each draw before the next."""
     dev = resolve_device(device)
+    if keep is None:
+        def keep(path, w):
+            return w
 
-    def draw(_, shp):
-        fan_in = shp[-2] if len(shp) >= 2 else shp[-1]
-        scale = 1.0 / np.sqrt(max(fan_in, 1))
+    def normal(shp, scale):
         w = torch.randn(shp, generator=generator, dtype=torch.float32,
                         device=dev)
         return w.mul_(scale).to(PDTYPE)
+
+    def draw(path, shp):
+        fan_in = shp[-2] if len(shp) >= 2 else shp[-1]
+        scale = 1.0 / np.sqrt(max(fan_in, 1))
+        if path[0] != "stack" or not shp[0]:
+            return keep(path, normal(shp, scale))
+        out = None
+        for u in range(shp[0]):
+            w = keep(path, normal(shp[1:], scale))
+            if out is None:
+                out = w.new_empty((shp[0], *w.shape))
+            out[u] = w
+        return out
 
     return _map_shapes(draw, model_shape_tree(cfg))
 

@@ -9,6 +9,10 @@ whole leaf would need 3.6 GB per temporary (qwen3-4b's stacked ``w_gate``
 has 896.5 M elements).  The arithmetic is elementwise, so the blocks
 change no bit.
 
+On a mesh the tensors are this rank's shards (``state_specs``: the state
+is laid out as the parameters are), and the clip scale comes from the
+global norm over every rank's shards (``apply_updates(shardings=)``).
+
 ``lr``, the clip scale and the bias corrections are 0-d float32 tensors on
 the parameters' device, as the reference computes them from its int32
 step: Python doubles would move every update by an f32 ulp.
@@ -68,6 +72,12 @@ def abstract_state(params: Tree) -> AdamWState:
                       m=tree_map(f32, params), v=tree_map(f32, params))
 
 
+def state_specs(param_spec_tree: Tree) -> AdamWState:
+    """The state's specs: m and v as the parameters, the step replicated."""
+    from repro_torch.models.sharding import P
+    return AdamWState(step=P(), m=param_spec_tree, v=param_spec_tree)
+
+
 def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     """Linear warm-up, then cosine decay to ``min_lr_frac``; float32 from
     an int32 step, in the reference's order of operations."""
@@ -89,13 +99,21 @@ def _blocks(t: torch.Tensor):
     return [slice(lo, lo + rows) for lo in range(0, t.shape[0], rows)]
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
+def global_norm(tree: Tree, shardings: Tree = None) -> torch.Tensor:
     """sqrt of the float32 sum of squares over every leaf, leaves summed
     in tree order; each leaf's sum of squares is its float32 norm squared,
-    which reads the leaf once and makes no float32 copy of it."""
+    which reads the leaf once and makes no float32 copy of it.  With
+    ``shardings`` (a tree of ``NamedSharding``), the leaves are shards and
+    each leaf's sum covers every rank's shard once."""
+    if shardings is None:
+        sums = [torch.square(torch.linalg.vector_norm(g, dtype=F32))
+                for g in tree_leaves(tree)]
+    else:
+        from repro_torch.models.sharding import global_sumsq
+        sums = global_sumsq(tree, shardings)
     total = 0
-    for g in tree_leaves(tree):
-        total = total + torch.square(torch.linalg.vector_norm(g, dtype=F32))
+    for sq in sums:
+        total = total + sq
     return torch.sqrt(torch.as_tensor(total, dtype=F32))
 
 
@@ -110,12 +128,13 @@ def _update(p, g, m, v, scale, lr, b1c, b2c, cfg: AdamWConfig) -> None:
 
 
 def apply_updates(params: Tree, grads: Tree, state: AdamWState,
-                  cfg: AdamWConfig):
+                  cfg: AdamWConfig, *, shardings: Tree = None):
     """Returns (params, new_state, metrics): ``params``, ``state.m`` and
     ``state.v`` are the given tensors, updated in place; the new state
-    holds a new step counter."""
+    holds a new step counter.  ``shardings``: the parameters' placements
+    where the tensors are shards (the norm is then the global one)."""
     with torch.no_grad():
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, shardings)
         clip = torch.as_tensor(cfg.grad_clip, dtype=F32, device=gnorm.device)
         scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-12), max=1.0)
         step = state.step + 1

@@ -4,8 +4,10 @@ As in ``repro.train.elastic``: ``shrink_mesh`` rebuilds the largest
 (data, model) mesh from the surviving devices with the model-axis width
 kept, and ``resume`` restores the latest checkpoint onto the new mesh
 (the checkpoint stores full logical arrays), from the same step; the
-counter-based token stream replays the exact batch sequence.  On this
-slice the new mesh must hold one device (``train.loop.mesh_device``).
+counter-based token stream replays the exact batch sequence.  On a
+distributed mesh each rank keeps its shards under the new mesh's
+specs.  The survivors form a new ``torch.distributed`` world (a
+relaunch on them), so ``shrink_mesh`` on a distributed world spans it.
 """
 from __future__ import annotations
 
@@ -13,12 +15,13 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import Mesh, build_mesh
 from repro_torch.models import params as pp
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import NamedSharding, P
 from repro_torch.optim import adamw
 from repro_torch.train import checkpoint as ckpt
-from repro_torch.train.loop import RunConfig, mesh_device, param_shardings
+from repro_torch.train.loop import RunConfig, param_shardings
 
 
 def shrink_mesh(devices: Sequence[torch.device], model_parallel: int,
@@ -29,20 +32,27 @@ def shrink_mesh(devices: Sequence[torch.device], model_parallel: int,
         raise RuntimeError(
             f"only {n} devices survive; cannot keep TP={model_parallel}")
     data = n // model_parallel
-    return Mesh(tuple(axis_names), (data, model_parallel),
-                tuple(devices[: data * model_parallel]))
+    return build_mesh(axis_names, (data, model_parallel),
+                      devices[: data * model_parallel])
 
 
 def resume(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, ckpt_dir: str,
            new_mesh: Mesh, run: RunConfig = RunConfig()):
-    """(params, opt_state, step) of the latest checkpoint, on
-    ``new_mesh``'s device."""
+    """(params, opt_state, step) of the latest checkpoint re-sharded for
+    ``new_mesh`` (this rank's shards on a distributed mesh)."""
     step = ckpt.latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
-    param_shardings(cfg, new_mesh, run)
+    p_shard = param_shardings(cfg, new_mesh, run)
     abstract = {"params": pp.abstract_params(cfg)}
     abstract["opt"] = adamw.abstract_state(abstract["params"])
+    shardings = None
+    if new_mesh.distributed:
+        shardings = {"params": p_shard,
+                     "opt": adamw.AdamWState(
+                         step=NamedSharding(new_mesh, P()), m=p_shard,
+                         v=p_shard)}
     state, step = ckpt.restore(ckpt_dir, step, abstract,
-                               device=mesh_device(new_mesh))
+                               device=new_mesh.local_device,
+                               shardings=shardings)
     return state["params"], state["opt"], step

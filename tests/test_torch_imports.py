@@ -79,3 +79,28 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         t_program.execute(prog, np.ones(64), backend="device")
     y = t_program.execute(prog, np.ones(64), backend="device", device="cpu")
     assert y.shape == (64,)
+
+
+def test_mesh_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The sharded slice's entry points want CUDA unless ``device="cpu"``
+    is passed: the host mesh, the process group's bring-up and the
+    launcher raise without it; on a CPU host mesh ``train_loop`` runs."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.synthetic import DataConfig, TokenStream
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import train_loop
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (make_host_mesh, init_distributed,
+                 lambda: launch_train.main(["--smoke", "--steps", "1",
+                                            "--ckpt", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    cfg = get_smoke_config("qwen3_4b")
+    mesh = make_host_mesh(device="cpu")
+    assert not mesh.distributed and mesh.local_device.type == "cpu"
+    _, opt, metrics = train_loop(
+        cfg, AdamWConfig(), mesh,
+        TokenStream(cfg, DataConfig(batch=2, seq_len=8)), 1)
+    assert int(opt.step) == 1 and np.isfinite(metrics["loss"])

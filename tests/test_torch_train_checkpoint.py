@@ -235,7 +235,8 @@ class TestElasticRestart:
 
     def test_resume_on_a_shrunk_mesh(self, setup):
         """The elastic path onto one surviving device; a survivor mesh of
-        more than one device raises (sharded training is not ported)."""
+        more than one device without a process group over them raises
+        (``tests/test_torch_mesh_train.py`` resumes on such a group)."""
         cfg, stream, tmp = setup
         run = RunConfig(fsdp=False, remat=False, donate=False)
         mesh = make_host_mesh(device="cpu")
@@ -249,7 +250,7 @@ class TestElasticRestart:
                                    run, start_step=step, params=params,
                                    opt_state=opt)
         assert np.isfinite(metrics["loss"])
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(RuntimeError, match="without a process group"):
             elastic.resume(cfg, ta.AdamWConfig(), str(tmp / "e"),
                            elastic.shrink_mesh([CPU, CPU], 1), run)
         with pytest.raises(FileNotFoundError):

@@ -208,7 +208,9 @@ def test_straggler_deadline_is_reported():
 
 
 def test_mesh_of_two_devices_raises():
-    """A mesh of more than one device never trains quietly on one."""
+    """A mesh of more than one device never trains quietly on one: without
+    a process group over its devices (``tests/test_torch_mesh_train.py``
+    trains on such groups) every factory raises."""
     cfg = get_smoke_config("qwen3_4b")
     mesh = Mesh(("data", "model"), (2, 1), (CPU, CPU))
     assert tloop.batch_axes_of(mesh) == ("data",)
@@ -216,7 +218,7 @@ def test_mesh_of_two_devices_raises():
                  lambda: tloop.make_decode_step(cfg, mesh, 2),
                  lambda: tloop.make_prefill_step(cfg, mesh, 2),
                  lambda: tloop.param_shardings(cfg, mesh, tloop.RunConfig())):
-        with pytest.raises(NotImplementedError, match="sharded training"):
+        with pytest.raises(RuntimeError, match="without a process group"):
             make()
 
 
@@ -236,7 +238,8 @@ def test_serving_step_factories():
                             device="cpu")
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 6))
     _, for_batch, p_place = tloop.make_prefill_step(cfg, mesh, 2)
-    assert all(d == CPU for d in tp.tree_leaves(p_place))
+    assert all(s.mesh is mesh and s.mesh.local_device == CPU
+               for s in tp.tree_leaves(p_place))
     got = for_batch({"tokens": toks})(params, {"tokens": toks})
     want = tm.prefill(params, cfg, {"tokens": torch.from_numpy(toks)})
     assert torch.equal(got, want)
