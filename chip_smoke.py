@@ -11,8 +11,9 @@ points (``lower``, ``make_program_spmv_fn``, ``gather_b``), a
 (``repro_torch.kernels``), a ``serving`` phase through the router
 (``repro_torch.serve``), an ``lm_serve`` phase through the LM
 ``Engine``, an ``lm_train`` phase through ``make_train_step`` and
-``train_loop``, and an ``lm_train_sharded`` phase through the sharded
-step on a ``torch.distributed`` mesh:
+``train_loop``, an ``lm_train_sharded`` phase through the sharded
+step on a ``torch.distributed`` mesh, and an ``examples`` phase through
+the six scripts of ``examples_torch/``:
 
 * ``planner``: ``autotune(make_matrix("cop20k_A"), num_shards=8)`` at
   the full Table-I size (120,000 rows) with the default probe must pick
@@ -115,7 +116,22 @@ step on a ``torch.distributed`` mesh:
   ``launch/dryrun.py`` over its whole grid on both production meshes
   (no cell may fail).  No fallback: a failed group or collective fails
   the run; no sparse kernel may launch.  Prints one
-  ``{"lm_train_sharded": ...}`` line.
+  ``{"lm_train_sharded": ...}`` line;
+* ``examples``: each script's ``main`` on the card, its printout sent to
+  stderr: ``quickstart`` and ``reorder_study`` (host only) return their
+  tables; ``autotune_serve`` serves its four tenants through the
+  graph-replayed router (every scaled error <= 2e-4; the SpMV kernels
+  it launched, warm-ups and captures, are listed and stay out of the
+  kernels line); ``serve_lm``'s prompts come back unchanged and each
+  generated token's logit in a forward pass over the served tokens lies
+  within 0.15 of its position's maximum; ``moe_valiant``'s expert load
+  sums to T top_k and equals the CPU's on the same inputs, but where a
+  route parts at a near-tie (the gap within the float32 rounding bound
+  of the router's dot products); ``train_lm`` at its defaults (24.0M
+  parameters, B = 8, S = 256, grad_accum 2) takes
+  ``EXAMPLE_TRAIN_STEPS`` steps: losses and gnorms finite, the last 10
+  losses' mean below the first 10's, four checkpoints, ms a step.
+  Prints one ``{"examples": ...}`` line with each script's ``phase_s``.
 
 Each program or API call answers four single vectors and one (N, 8)
 block with the launch counts zeroed just before and read just after,
@@ -1955,6 +1971,191 @@ def lm_train_sharded_phase(torch, device, seed, one) -> dict:
     return out
 
 
+EXAMPLES_DIR = ROOT / "examples_torch"
+#: ``train_lm``'s steps here: its default, 200 (four checkpoints).
+EXAMPLE_TRAIN_STEPS = 200
+
+
+def load_example(name: str):
+    """``examples_torch/<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", EXAMPLES_DIR / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(mod, argv):
+    """``mod.main(argv)`` with the example's printout sent to stderr;
+    returns (its result, its wall seconds)."""
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        result = mod.main(argv)
+    return result, time.perf_counter() - t0
+
+
+def route_flips(torch, cfg, params, x, ids_a, ids_b) -> int:
+    """(token, k) picks on which two runs' routes part, each checked to
+    be a near-tie: the gap between the k-th and (k+1)-th router logits
+    (float64) within twice the dot product's rounding bound in float32,
+    2 d u sum_j |x_j r_je| (u = 2^-24), of the experts involved."""
+    d = x.shape[-1]
+    xs = x.reshape(-1, d).double().cpu()
+    r = params["router"].double().cpu()
+    logits = xs @ r
+    bound = 2 * d * 2.0 ** -24 * (xs.abs() @ r.abs())          # (T, E)
+    a, b = ids_a.cpu(), ids_b.cpu()
+    flips = 0
+    for t in torch.nonzero((a.sort(-1).values != b.sort(-1).values)
+                           .any(-1)).flatten().tolist():
+        srt, order = logits[t].sort(descending=True)
+        k = cfg.top_k
+        gap = float(srt[k - 1] - srt[k])
+        tol = float(bound[t, order[k - 1]] + bound[t, order[k]])
+        check(gap <= tol, f"moe_valiant: token {t}'s route parts from the "
+              f"CPU's at a gap {gap} over the rounding bound {tol}")
+        flips += int((a[t].sort().values != b[t].sort().values).sum())
+    return flips
+
+
+def examples_phase(torch, device, work_dir) -> dict:
+    """The six examples of ``examples_torch/`` through their ``main``
+    (``run`` where a check needs the CPU's twin), on ``device``:
+
+    * ``quickstart``, ``reorder_study`` (host only): their tables, finite;
+    * ``autotune_serve``: every tenant's scaled error <= E2E_TOL, and the
+      SpMV kernels its graphed executors launched (warm-ups and captures;
+      out of the kernels line, as the serving phase's);
+    * ``serve_lm``: the prompts back unchanged, each generated token's
+      logit in a forward pass over the served tokens within LM_TOL of its
+      position's maximum;
+    * ``moe_valiant``: the load sums to T top_k and equals the CPU's on
+      the same inputs but at near-tied routes (``route_flips``), the
+      drops too where no route parts;
+    * ``train_lm`` at its default width and depth: every loss and gnorm
+      finite, the mean of the last 10 losses below the first 10's, four
+      checkpoints written, ms a step."""
+    from repro_torch.kernels import _lib
+    from repro_torch.models import model as mm
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train import checkpoint
+
+    dev = str(device)
+    out = {"held_gb_before": free_card(torch)}
+
+    qs, s = run_example(load_example("quickstart"), [])
+    check(len(qs["rows"]) == 16 and all(
+        np.isfinite(r["bandwidth_mbs"]) and r["bandwidth_mbs"] > 0
+        for r in qs["rows"]), "quickstart: its table")
+    out["quickstart"] = {"phase_s": s, "table": [
+        [r["reordering"], r["layout"], r["distribution"],
+         r["bandwidth_mbs"], r["migrations"], r["hotspot_share"]]
+        for r in qs["rows"]]}
+
+    rs, s = run_example(load_example("reorder_study"), [])
+    check(len(rs["rows"]) == 4 and all(
+        np.isfinite(v) and v > 0 for r in rs["rows"]
+        for v in (r["emu_mbs"], r["cpu_mbs"])), "reorder_study: its table")
+    out["reorder_study"] = {"phase_s": s, "table": [
+        [r["reordering"], r["emu_mbs"], r["emu_gain"], r["cpu_mbs"],
+         r["cpu_gain"]] for r in rs["rows"]]}
+
+    before = dict(_lib.launch_counts)
+    at, s = run_example(load_example("autotune_serve"), ["--device", dev])
+    torch.cuda.synchronize()
+    launched = {k: _lib.launch_counts[k] - before[k] for k in before
+                if _lib.launch_counts[k] != before[k]}
+    errs = {k: t["scaled_error"] for k, t in at["tenants"].items()}
+    check(all(e <= E2E_TOL for e in errs.values()),
+          f"autotune_serve: scaled errors {errs}")
+    check(any(launched.get(k, 0) for k in SERVING_KERNELS),
+          f"autotune_serve launched none of the SpMV kernels: {launched}")
+    out["autotune_serve"] = {
+        "phase_s": s, "scaled_error": errs, "launched": launched,
+        "plans": {k: [t["plan"], t["shard_kernels"]]
+                  for k, t in at["tenants"].items()},
+        "gate": {k: g["pays"] for k, g in at["gate"].items()}}
+    del at
+    free_card(torch)
+
+    before = dict(_lib.launch_counts)
+    sl, s = run_example(load_example("serve_lm"), ["--device", dev])
+    P = sl["prompts"].shape[1]
+    toks = sl["tokens"]
+    check(np.array_equal(toks[:, :P], sl["prompts"]),
+          "serve_lm: the prompts came back changed")
+    ids = torch.from_numpy(toks.astype(np.int64)).to(device)
+    with torch.no_grad():
+        full, _ = mm.forward(sl["params"], sl["cfg"], {"tokens": ids[:, :-1]})
+    full = full[:, P - 1:].float()                      # (B, gen, V)
+    mx = full.amax(dim=-1)
+    got = full.gather(-1, ids[:, P:, None])[..., 0]
+    over = float(((mx - got) - LM_TOL * (1 + mx.abs())).max())
+    check(bool(torch.isfinite(full).all()) and over <= 0,
+          f"serve_lm: a generated token's logit lies {over} past "
+          f"{LM_TOL} of its position's maximum")
+    out["serve_lm"] = {"phase_s": s, "tokens": toks.tolist(),
+                       "max_gap_to_max_logit": float((mx - got).max()),
+                       "argmax_tokens": int((got == mx).sum()),
+                       "generated": int(got.numel())}
+    del sl, full
+    check(_lib.launch_counts == before, "serve_lm launched a sparse kernel")
+
+    mod = load_example("moe_valiant")
+    mv, s = run_example(mod, ["--device", dev])
+    cfg, params, x, _ = mod.inputs()
+    with contextlib.redirect_stdout(sys.stderr):
+        cpu = mod.run(*mod.inputs(), torch.device("cpu"))
+    T = x.shape[0] * x.shape[1]
+    check(float(mv["load"].sum()) == T * cfg.top_k,
+          f"moe_valiant: the load sums to {mv['load'].sum()}, not "
+          f"{T * cfg.top_k}")
+    flips = route_flips(torch, cfg, params, x, mv["ids"], cpu["ids"])
+    load_off = int(np.abs(mv["load"] - cpu["load"]).sum())
+    check(load_off <= 2 * flips and (flips or mv["drop"] == cpu["drop"]),
+          f"moe_valiant: load {mv['load']} against the CPU's {cpu['load']}"
+          f" with {flips} near-tied picks; drops {mv['drop']} against "
+          f"{cpu['drop']}")
+    out["moe_valiant"] = {"phase_s": s, "load": mv["load"].tolist(),
+                          "cpu_load": cpu["load"].tolist(),
+                          "route_flips": flips, "drop": list(mv["drop"])}
+    del mv, cpu
+
+    free_card(torch)
+    before = dict(_lib.launch_counts)
+    ckpt = os.path.join(work_dir, "train_lm_ckpt")
+    torch.cuda.reset_peak_memory_stats()
+    tl, s = run_example(load_example("train_lm"), [
+        "--steps", str(EXAMPLE_TRAIN_STEPS), "--ckpt", ckpt, "--device", dev])
+    loss = [m["loss"] for m in tl["metrics"]]
+    gnorm = [m["gnorm"] for m in tl["metrics"]]
+    check(len(loss) == EXAMPLE_TRAIN_STEPS and
+          bool(np.isfinite(loss).all() and np.isfinite(gnorm).all()),
+          "train_lm: a loss or gnorm is not finite")
+    check(np.mean(loss[-10:]) < np.mean(loss[:10]),
+          f"train_lm: the loss did not fall ({np.mean(loss[:10])} -> "
+          f"{np.mean(loss[-10:])})")
+    steps = sorted(d for d in os.listdir(ckpt) if d.startswith("step_"))
+    check(len(steps) == EXAMPLE_TRAIN_STEPS // 50 and
+          checkpoint.latest_step(ckpt) == EXAMPLE_TRAIN_STEPS,
+          f"train_lm: checkpoints {steps}")
+    check(_lib.launch_counts == before, "train_lm launched a sparse kernel")
+    ms = [1e3 * t for t in tl["step_s"]]
+    out["train_lm"] = {
+        "phase_s": s, "steps": EXAMPLE_TRAIN_STEPS,
+        "params": int(sum(t.numel() for t in tree_leaves(tl["params"]))),
+        "loss_first": loss[0], "loss_last": loss[-1],
+        "loss_mean_first10": float(np.mean(loss[:10])),
+        "loss_mean_last10": float(np.mean(loss[-10:])),
+        "gnorm_max": float(np.max(gnorm)), "checkpoints": steps,
+        "ms_per_step": float(np.median(ms)), "ms_first_step": ms[0],
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del tl
+    free_card(torch)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2047,6 +2248,10 @@ def run_phases(torch, device, seed, artifact_dir) -> int:
     sharded = lm_train_sharded_phase(torch, device, seed + 4, train["full"])
     sharded["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"lm_train_sharded": sharded}))
+    t0 = time.perf_counter()
+    examples = examples_phase(torch, device, artifact_dir)
+    examples["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"examples": examples}))
     summary = []
     for name in _lib.KERNELS:
         check(totals[name] > 0, f"{name} was never launched on the main path")

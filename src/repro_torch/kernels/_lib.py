@@ -129,12 +129,16 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def call(name: str, symbol: str, *args) -> None:
-    """Launch ``symbol`` on the current stream and count it under ``name``;
-    raises with the CUDA error code if the launch was refused."""
+def call(name: str, symbol: str, device, *args) -> None:
+    """Launch ``symbol`` on ``device`` (the device of the tensors whose
+    pointers are in ``args``), on that device's current stream, and count
+    it under ``name``; raises with the CUDA error code if the launch was
+    refused.  The C launchers run on whatever device is current, so the
+    launch is made with ``device`` current."""
     import torch
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib(), symbol)(*args, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib(), symbol)(*args, stream)
     if err:
         raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
     launch_counts[name] += 1

@@ -68,7 +68,8 @@ def ell_spmv(data, cols, ovf_rows, ovf_cols, ovf_vals, ovf_ptr, x, sids, *,
         raise ValueError("ell_spmv: operand shapes disagree")
     if sids.numel() == 0 or B == 0:
         return out
-    _lib.call("ell_spmv", "rt_ell_spmv", data.data_ptr(), cols.data_ptr(),
+    _lib.call("ell_spmv", "rt_ell_spmv", data.device,
+              data.data_ptr(), cols.data_ptr(),
               None if ell_len is None else ell_len.data_ptr(),
               ovf_ptr.data_ptr(), ovf_cols.data_ptr(), ovf_vals.data_ptr(),
               x.data_ptr(), _lib.x_stride(x), sids.data_ptr(), sids.numel(),

@@ -55,7 +55,8 @@ def seg_psum(vals, cols, x, sids, *, out=None):
                          "aligned (the kernel moves 4 elements a load)")
     if n == 0 or B == 0:
         return out
-    _lib.call("seg_psum", "rt_seg_psum", vals.data_ptr(), cols.data_ptr(),
+    _lib.call("seg_psum", "rt_seg_psum", vals.device,
+              vals.data_ptr(), cols.data_ptr(),
               x.data_ptr(), _lib.x_stride(x), sids.data_ptr(), n, C, L, Lx,
               B, out.data_ptr())
     return out
@@ -99,7 +100,8 @@ def seg_fixup(psum, pieces, piece_ptr, sids, out_ids, *, num_splits: int,
         raise ValueError("seg_fixup: operand shapes disagree")
     if n == 0 or B == 0:
         return out
-    _lib.call("seg_fixup", "rt_seg_fixup", psum.data_ptr(),
+    _lib.call("seg_fixup", "rt_seg_fixup", psum.device,
+              psum.data_ptr(),
               pieces.data_ptr(), piece_ptr.data_ptr(), sids.data_ptr(),
               out_ids.data_ptr(), n, C, L, Pp, R, num_splits, B,
               out.data_ptr())

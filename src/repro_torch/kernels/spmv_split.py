@@ -56,7 +56,8 @@ def split_psum(vals, cols, x, *, out=None):
                          "aligned (the kernel moves 4 elements a load)")
     if NS * Cs == 0 or B == 0:
         return out
-    _lib.call("split_psum", "rt_split_psum", vals.data_ptr(), cols.data_ptr(),
+    _lib.call("split_psum", "rt_split_psum", vals.device,
+              vals.data_ptr(), cols.data_ptr(),
               x.data_ptr(), NS * Cs, L, n, B, out.data_ptr())
     return out
 
@@ -83,6 +84,6 @@ def split_combine(part, sids, *, out):
         raise ValueError("split_combine: operand shapes disagree")
     if n == 0 or B == 0:
         return out
-    _lib.call("split_combine", "rt_split_combine", part.data_ptr(),
-              sids.data_ptr(), n, NS, R, B, out.data_ptr())
+    _lib.call("split_combine", "rt_split_combine", part.device,
+              part.data_ptr(), sids.data_ptr(), n, NS, R, B, out.data_ptr())
     return out

@@ -96,7 +96,8 @@ def tile_contrib(data, xcol, brow, tile_ptr, x, sids, *, rb_used=None,
                          "aligned (the kernel moves 4 elements a load)")
     if sids.numel() == 0 or B == 0:
         return out
-    _lib.call("tile_contrib", "rt_tile_spmv", data.data_ptr(),
+    _lib.call("tile_contrib", "rt_tile_spmv", data.device,
+              data.data_ptr(),
               xcol.data_ptr(), tile_ptr.data_ptr(), x.data_ptr(),
               _lib.x_stride(x), sids.data_ptr(), sids.numel(), Tp, Rb, rb,
               bm, bn, Lx, B, out.data_ptr())
@@ -151,8 +152,8 @@ def tile_walk_spmv(data, tile_cols, tile_ptr, x, *, mask=None, out=None):
                          "aligned")
     if Mb == 0 or B == 0:
         return out
-    _lib.call("tile_walk_spmv", "rt_tile_walk_spmv", data.data_ptr(),
-              None if mask is None else mask.data_ptr(),
+    _lib.call("tile_walk_spmv", "rt_tile_walk_spmv", data.device,
+              data.data_ptr(), None if mask is None else mask.data_ptr(),
               tile_cols.data_ptr(), tile_ptr.data_ptr(), x.data_ptr(), Mb, bm,
               bn, n, B, out.data_ptr())
     return out

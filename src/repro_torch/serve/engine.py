@@ -3,6 +3,12 @@
 The port of ``repro.serve.engine.Engine``.  Caches are allocated once per
 ``generate`` and updated in place by each step; the prompt is prefilled
 by stepping its tokens through the decode path, as in the reference.
+
+The sparse-matrix router's names (:class:`SparseMatrixEngine`,
+:class:`IngestedMatrix`, :class:`MicroBatchConfig`) are re-exported from
+:mod:`repro_torch.serve.router`, as the reference's ``serve.engine``
+re-exports them, so ``from repro_torch.serve.engine import
+SparseMatrixEngine`` works as it does there.
 """
 from __future__ import annotations
 
@@ -16,8 +22,11 @@ from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import model as mm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import tree_map
+from repro_torch.serve.router import IngestedMatrix, MicroBatchConfig, \
+    SparseMatrixEngine
 
-__all__ = ["Engine", "ServeConfig"]
+__all__ = ["Engine", "ServeConfig", "SparseMatrixEngine",
+           "IngestedMatrix", "MicroBatchConfig"]
 
 
 @dataclasses.dataclass

@@ -21,8 +21,19 @@ from repro_torch.core.spmv import SpmvPlan
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
+EXAMPLES = sorted((ROOT / "examples_torch").glob("*.py"))
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    EXAMPLES + [ROOT / "chip_smoke.py"]
+REF_MODULES = sorted((ROOT / "src" / "repro").rglob("*.py"))
+#: Names of the reference with no namesake in the port: XLA's and the
+#: TPU's (ROADMAP, "Not ported, and why").  The port's dry run counts
+#: its own collectives from the specs (``account``, ``LINK_BW``) where
+#: the reference lowers and compiles each cell and reads XLA's analyses.
+NOT_PORTED = {
+    "repro/launch/dryrun.py": {"collective_bytes_from_hlo", "lower_cell",
+                               "analyze", "ICI_BW"},
+    "repro/launch/mesh.py": {"auto_axis_types"},
+}
 
 
 def _imported_roots(path: Path):
@@ -52,9 +63,12 @@ def test_every_module_imports_with_jax_blocked():
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'repro'):\n"
         "    sys.modules[name] = None\n"
-        "import importlib\n"
+        "import importlib, importlib.util\n"
         f"for m in {_port_modules()!r}:\n"
         "    importlib.import_module(m)\n"
+        f"for i, p in enumerate({[str(p) for p in EXAMPLES]!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'ex{i}', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "assert not any(k.split('.')[0] in ('jax', 'repro')\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n")
@@ -104,3 +118,38 @@ def test_mesh_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         cfg, AdamWConfig(), mesh,
         TokenStream(cfg, DataConfig(batch=2, seq_len=8)), 1)
     assert int(opt.step) == 1 and np.isfinite(metrics["loss"])
+
+
+def _public_names(path: Path) -> list:
+    """A reference module's ``__all__`` where it has one; otherwise its
+    public top-level functions, classes and UPPER_CASE constants.  Read
+    with ``ast``: importing some reference modules sets XLA flags."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = []
+    for node in tree.body:
+        if isinstance(node, ast.Assign):
+            targets = [t.id for t in node.targets if isinstance(t, ast.Name)]
+            if "__all__" in targets:
+                return list(ast.literal_eval(node.value))
+            names += [t for t in targets if t.isupper()]
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.append(node.name)
+    return [n for n in names if not n.startswith("_")]
+
+
+@pytest.mark.parametrize("path", REF_MODULES,
+                         ids=lambda p: str(p.relative_to(ROOT / "src")))
+def test_reference_names_resolve_on_the_port(path):
+    """Every public name of a reference module is found on the port's
+    namesake module, but the XLA-only names of ``NOT_PORTED``."""
+    import importlib
+    rel = path.relative_to(ROOT / "src")
+    parts = ("repro_torch",) + rel.with_suffix("").parts[1:]
+    if parts[-1] == "__init__":
+        parts = parts[:-1]
+    mod = importlib.import_module(".".join(parts))
+    skip = NOT_PORTED.get(str(rel), set())
+    names = _public_names(path)
+    assert skip <= set(names), skip - set(names)
+    missing = [n for n in names if n not in skip and not hasattr(mod, n)]
+    assert not missing, f"{mod.__name__} lacks {missing}"
