@@ -37,14 +37,18 @@ the six scripts of ``examples_torch/``:
   powerlaw_tail matrix with NS = 8 and 64 (``api/split8``,
   ``api/split64``) and with NS = 64 at chunk 4096
   (``api/split64_4096``), ``tile_spmv`` on ``tile_from_csr`` of the
-  blocked_band matrix with (8, 128) tiles (``api/tile``) and (16, 64)
-  tiles (``api/tile16x64``, the general walk), ``seg_spmv`` on cop20k_A
+  blocked_band matrix with (8, 128) tiles (``api/tile``) and with (16, 64)
+  and (32, 32) tiles (``api/tile16x64``, ``api/tile32x32``: the masked
+  general walk), ``seg_spmv`` on cop20k_A
   at chunk 512 and 2048 (``api/seg``, ``api/seg2048``), ``hyb_spmv`` and
   ``ell_spmv`` on the full cop20k_A formats, and the
   deprecated ``bell_spmv`` / ``bell_spmm`` on ``csr_to_bcsr`` of a
   smaller ``blocked_band(16384, 32·16384)`` with (8, 128) blocks: the
   padded Block-ELL slab grows with the widest block row (59 blocks here,
-  495 MB), so the shim runs at an eighth of the rows;
+  495 MB), so the shim runs at an eighth of the rows; on the same
+  matrix the shims with (16, 16) blocks (``api/bell16x16``: the null-mask
+  general walk) and ``tile_flat_spmv`` on its (16, 128) flat tile
+  operands (``api/tile_flat16x128``: ``tile_contrib``'s general walk);
 * ``serving``: one ``SparseMatrixEngine(num_shards=8)`` on the card with
   micro-batches of up to 8 requests (2 ms linger) and three tenants at
   the sizes above: cop20k_A warm-started from the planner's bundle
@@ -194,6 +198,11 @@ HEADLINE = {"ell_spmv": "cop20k_A/ell", "seg_psum": "cop20k_A/seg",
             "seg_fixup": "cop20k_A/seg", "split_combine": "powerlaw_tail",
             "tile_contrib": "blocked_band", "split_psum": "api/split64",
             "tile_walk_spmv": "api/tile"}
+#: The phases of the general walks (tile shapes the fast walks do not
+#: take), listed under their kernel in the summary line.
+GENERAL_WALKS = {"tile_walk_spmv": ("api/tile16x64", "api/tile32x32",
+                                    "api/bell16x16"),
+                 "tile_contrib": ("api/tile_flat16x128",)}
 
 
 class CheckFailed(AssertionError):
@@ -702,7 +711,7 @@ def run_program(torch, label, A, plan, singles, block, device) -> dict:
 #: The kernel wrappers the per-format API reaches, by their names in
 #: ``repro_torch.kernels.ops``.
 API_WRAPPERS = ("_ell_kernel", "seg_psum", "seg_fixup", "split_psum",
-                "split_combine", "tile_walk_spmv")
+                "split_combine", "tile_walk_spmv", "tile_contrib")
 
 
 @contextlib.contextmanager
@@ -743,7 +752,7 @@ def api_record(torch, label, wrapper, a, kw) -> dict:
     a column), ``tile_cols``, ``tile_ptr`` and y.  The earlier walk read,
     and this counted, every whole tile and every x lane of its block
     columns; the null-mask walk of the Block-ELL shims still does, and is
-    counted so."""
+    counted so.  ``tile_contrib`` counts as in :func:`family_replays`."""
     from repro_torch.kernels import spmv_ell, spmv_seg, spmv_split, spmv_tile
 
     dev = a[0].device
@@ -853,6 +862,28 @@ def api_record(torch, label, wrapper, a, kw) -> dict:
             bytes=moved + nbytes(tcols, tptr)
             + 4 * B * (tptr.numel() - 1) * bm,
             ops=flops)
+    elif wrapper == "tile_contrib":
+        data, xcol, brow, tptr, x, sids = a
+        S, _, bm, bn = data.shape
+        B, R = x.shape[1], (tptr.shape[1] - 1) * bm
+        n_tiles = int(tptr[0, -1])          # the per-format API's one shard
+        out = fresh((S, B, R))
+        # NaN until the first call, the checked one, which must write every
+        # entry
+        poisoned = torch.full((S, B, R), float("nan"), device=dev)
+        rec.update(
+            name="tile_contrib",
+            kernel=lambda: spmv_tile.tile_contrib(
+                *a, rb_used=kw.get("rb_used"), out=poisoned),
+            plain=lambda: spmv_tile.tile_contrib_plain(
+                data, xcol, brow, x, sids, out(), kw.get("rb_used")),
+            scale=lambda: spmv_tile.tile_contrib_plain(
+                data.abs(), xcol, brow, x.abs(), sids, out(),
+                kw.get("rb_used")),
+            bytes=4 * n_tiles * (bm * bn + bn) + nbytes(tptr)
+            + 4 * B * distinct(torch, [xcol[0, :n_tiles].reshape(-1)],
+                               shared=True) + 4 * B * R + 4,
+            ops=2 * B * n_tiles * bm * bn)
     else:
         raise CheckFailed(f"{label}: no replay for {wrapper}")
     rec.setdefault("plain_timed", rec["plain"])
@@ -881,7 +912,8 @@ def api_cases(torch, matrices, device):
         yield label, tail, lambda x, spl=spl: ops.split_spmv(
             spl, x, device=device)
     band = matrices["blocked_band"]
-    for label, bm, bn in (("api/tile", 8, 128), ("api/tile16x64", 16, 64)):
+    for label, bm, bn in (("api/tile", 8, 128), ("api/tile16x64", 16, 64),
+                          ("api/tile32x32", 32, 32)):
         t = ops.tile_from_csr(band, bm=bm, bn=bn)
         yield label, band, lambda x, t=t: ops.tile_spmv(t, x, device=device)
     cop = matrices["cop20k_A"]
@@ -896,10 +928,17 @@ def api_cases(torch, matrices, device):
     ell = card(ell.data, ell.cols)
     yield "api/ell", cop, lambda x: ops.ell_spmv(*ell, x, device=device)
     small = mats.blocked_band(16384, 32 * 16384, seed=0)
-    bell = card(*ops.bell_from_bcsr(csr_to_bcsr(small, (8, 128))))
-    yield "api/bell", small, lambda x: (
-        ops.bell_spmv if x.dim() == 1 else ops.bell_spmm)(*bell, x,
-                                                          device=device)
+    for label, shape in (("api/bell", (8, 128)), ("api/bell16x16", (16, 16))):
+        bell = card(*ops.bell_from_bcsr(csr_to_bcsr(small, shape)))
+        yield label, small, lambda x, bell=bell: (
+            ops.bell_spmv if x.dim() == 1 else ops.bell_spmm)(
+                *bell, x, device=device)
+    t = ops.tile_from_csr(small, bm=16, bn=128)
+    flat = card(t.data, np.minimum(t.tile_cols[:, None].astype(np.int64)
+                                   * t.bn + np.arange(t.bn), small.ncols - 1)
+                .astype(np.int32), t.tile_rows)
+    yield "api/tile_flat16x128", small, lambda x: ops.tile_flat_spmv(
+        *flat, x, num_rows=small.nrows, device=device)
 
 
 def run_api_call(torch, label, A, call, singles, block, device) -> dict:
@@ -945,7 +984,8 @@ def run_api_call(torch, label, A, call, singles, block, device) -> dict:
         api_record(torch, label, *c) for c in calls]))
     A_card = csr_tensor(torch, A.row_ptr, A.col_index, A.values, A.shape,
                         device)
-    for name in ("ell_spmv", "seg_psum", "split_psum", "tile_walk_spmv"):
+    for name in ("ell_spmv", "seg_psum", "split_psum", "tile_walk_spmv",
+                 "tile_contrib"):
         if name in kernels:
             kernels[name]["library_ms"] = cuda_ms(
                 torch, lambda: torch.sparse.mm(A_card, xs[0][:, None]))
@@ -2266,6 +2306,15 @@ def run_phases(torch, device, seed, artifact_dir) -> int:
             bound_by=s["bound_by"], library_ms=s["library_ms"],
             phase=phase, ms_b8=results[phase]["kernels_b8"][name]["ms"],
             bound_ms_b8=results[phase]["kernels_b8"][name]["bound_ms"]))
+        general = []
+        for ph in GENERAL_WALKS.get(name, ()):
+            g, g8 = (results[ph][k][name] for k in ("kernels", "kernels_b8"))
+            general.append(dict(
+                phase=ph, ms=g["ms"], ms_b8=g8["ms"], bound_ms=g["bound_ms"],
+                bound_ms_b8=g8["bound_ms"], plain_ms=g["plain_ms"],
+                library_ms=g["library_ms"], launches=g["launches"]))
+        if general:
+            summary[-1]["general"] = general
         if name == "seg_fixup":
             summary[-1]["note"] = ("the carry fix-up is jnp glue in the "
                                    "reference, not a pallas_call")

@@ -75,11 +75,12 @@
 // butterfly of warp_sum, so each column equals the single-vector call.
 //
 // These fast walks take (8k, 128) tiles (tile_contrib: (8, 128)).  Every
-// other shape the reference takes goes to the general walks (below):
-// plain warps over 8-row groups with lanes across the row in 32-cell
-// strides, the mask read a byte at a time (a mask row is bn / 8 bytes, so
-// the 16-byte mask load does not carry over), and tile_contrib's zero fill
-// in 4-byte stores (bm * rows need not be a multiple of 4).
+// other shape the reference takes goes to the general walks (below), which
+// read what the fast walks read: the masked one the fast walk's layout with
+// RG-row groups and a row's bn / 8 mask bytes in aligned loads, the others
+// lanes across (tile, row, cell) in 16-byte loads where bn % 4 == 0, with
+// tile_contrib's zero fill in 4-byte stores (bm * rows need not be a
+// multiple of 4).
 #include "common.cuh"
 
 namespace {
@@ -94,8 +95,16 @@ constexpr int PREFETCH = 1;
 // Zero stores a thread of a tile_contrib fill block makes: 16 bytes each
 // at (8, 128) tiles, 4 at any other shape.
 constexpr int FILL_STORES = 4;
-// Rows of a tile one warp of a general walk (any tile shape) owns.
-constexpr int GROUP_ROWS = 8;
+// The general walks (any other tile shape; tools/kernel_variants.py
+// general times the choices).  The masked walk: items whose masks and
+// first cells it loads at once (2 holds 72 registers to 40 at B = 1, and
+// so fewer warps, and is slower), and the most rows a warp owns.  The
+// null-mask and tile_contrib walks: items loaded ahead of the adds, and
+// the most rows a warp holds (a power of two).
+constexpr int GENERAL_STEPS = 1;
+constexpr int GENERAL_GROUP = 4;
+constexpr int GENERAL_PREFETCH = 2;
+constexpr int GENERAL_ROWS = 4;
 
 // The lanes-across-row walk of tile_contrib and the null-mask walk: a warp
 // owns 8 rows of a run of (8k, 128) tiles, lane l cells 4l .. 4l+3 of each
@@ -459,187 +468,469 @@ __global__ void tile_walk_dense_kernel(const float* __restrict__ data,
 
 // -- the general walks: any tile shape (bm, bn), bm, bn >= 1 --------------
 //
-// One warp per (block row, group of up to GROUP_ROWS rows): the last
-// group of a block row is cut where bm % GROUP_ROWS != 0.  Lanes go across
-// the tile row in strides of 32 cells: lane l takes cells l, l + 32, ...
-// below bn (the last stride masked where bn % 32 != 0), of every row of its
-// group, in each tile of the block row in tile order.  For a cell column j
-// of tile t the lane first finds which of its group's rows read it (the
-// masked walk: the row's mask byte j / 8, bit 7 - j % 8, read byte by byte
-// since a mask row is only bn / 8 bytes; the null-mask walk and
-// tile_contrib: every row), gathers x once for them (RHS_CHUNK columns
-// from one cell load), then adds each such row's cell into its running
-// partial.  Each row's 32 partials are summed once, at the end, with
-// warp_sum's butterfly.  Each column's adds run in this fixed order, so
-// batched columns equal the single-vector call bitwise.
+// They read what the fast walks read, with every lane busy at the shapes
+// users pick, and several items' loads in flight.
+//
+// The masked walk (tile_walk_general_kernel) is the fast walk's lane layout
+// made general (MaskLayout).  A warp owns a group of RG rows of a block
+// row, RG the largest power of two <= GENERAL_GROUP dividing bm, so every
+// group is full and TPS = 32 / RG tile slots fill the warp.  A tile row
+// goes in P pieces of up to 128 columns, the fast walk's row; item k of a
+// block row is piece k % P of tile t_lo + k / P, and lane (u, r) owns row
+// g*RG + r of the items u, u + TPS, ...  An item's mask bytes (bn / 8 a
+// row, at most 16 a piece) come in aligned loads of W bytes, W the largest
+// power of two <= 16 dividing bn / 8: one load a piece but where bn / 8
+// has an odd factor (bn = 40: single bytes).  tile_cols[t] is read once
+// an item.  Then only the marked cells, in ascending column, as the fast
+// walk reads them (first_lone_cell, a full quarter as eight 16-byte
+// loads).  The masks and first cells of GENERAL_STEPS items are loaded
+// before any is added; one item a lane at a time, with few registers and
+// so many warps, was the fastest.
+//
+// The null-mask walk (tile_walk_general_dense_kernel) and tile_contrib's
+// (tile_contrib_general_kernel) read every cell (CellLayout).  A load is V
+// cells: 4 (16 bytes) where bn % 4 == 0, else 1; a tile row is CV = bn / V
+// loads.  LR lanes take a row's loads (LR the least power of two >= CV, at
+// most 32; a row of more loads goes in NC chunks of LR), a warp pass holds
+// RS rows (RS <= GENERAL_ROWS), and where its rows leave lanes over, TPS
+// tile slots.  A warp holds G = RS * RPL <= GENERAL_ROWS rows: few rows a
+// warp make many warps, which a short walk over a long block row needs.
+// Item k of a block row is chunk k % NC of tile t_lo + k / NC; lane
+// (u, r, v) owns rows g*G + r + RS*i (i < RPL) of the items u, u + TPS, ...,
+// and load v of each.  One x gather feeds RPL rows and RHS_CHUNK columns.
+// A ring of GENERAL_PREFETCH items sits in registers: an item's loads are
+// issued that many items ahead, and the next item's x is gathered before
+// this item's FMAs.
+//
+// Each lane adds its cells in the order above; a row's lanes end in a fixed
+// butterfly over the tile-slot (and cell) bits of the lane.  Each column's
+// adds run in this order whatever the number of columns, so batched columns
+// equal the single-vector call bitwise.  No atomics.
 
-// The masked walk's cells: only the marked ones, x at the tile's block
-// column (a mask marks no cell past n).
-struct MaskedCells {
-  const float* data;
-  const unsigned char* mask;
-  const int* tile_cols;
-  const float* x;          // column b0 of x
-  long long col_stride;    // floats between two columns of x
-  int bm, bn, n;
-  __device__ __forceinline__ unsigned rows(long long t, int r0, int nr,
-                                           int j) const {
-    if ((long long)tile_cols[t] * bn + j >= n) return 0u;
-    const unsigned char* m = mask + (t * bm + r0) * (bn / 8) + j / 8;
-    unsigned on = 0u;
-    for (int i = 0; i < nr; ++i)
-      on |= (unsigned)((m[(long long)i * (bn / 8)] >> (7 - j % 8)) & 1) << i;
-    return on;
-  }
-  __device__ __forceinline__ float xval(long long t, int j, int b) const {
-    return x[b * col_stride + (long long)tile_cols[t] * bn + j];
+__host__ __device__ inline int pow2_ceil(int v) {
+  int p = 1;
+  while (p < v) p *= 2;
+  return p;
+}
+
+struct MaskLayout {
+  int RG;       // rows a warp: the largest power of two <= GENERAL_GROUP
+                // dividing bm
+  int TPS;      // tile slots
+  int P;        // pieces of up to 128 columns a tile row
+  int groups;   // warps a block row
+  __host__ __device__ MaskLayout(int bm, int bn)
+      : RG((bm & -bm) < GENERAL_GROUP ? (bm & -bm) : GENERAL_GROUP),
+        TPS(WARP / RG), P((bn + 127) / 128), groups(bm / RG) {}
+};
+
+struct CellLayout {
+  int V, CV;    // cells a load, loads a tile row
+  int LR, NC;   // lanes a row, chunks of LR loads a row
+  int RS, TPS;  // row slots and tile slots of a warp pass
+  int RPL, G;   // rows a lane (a power of two), rows a warp
+                // (<= GENERAL_ROWS)
+  int groups;   // warps a block row
+  __host__ __device__ CellLayout(int bm, int bn) {
+    V = bn % 4 == 0 ? 4 : 1;
+    CV = bn / V;
+    LR = pow2_ceil(CV < WARP ? CV : WARP);
+    NC = (CV + LR - 1) / LR;
+    int rows = pow2_ceil(bm);
+    if (rows > GENERAL_ROWS) rows = GENERAL_ROWS;
+    RS = WARP / LR < rows ? WARP / LR : rows;
+    TPS = WARP / (LR * RS);
+    const int per = pow2_ceil((bm + RS - 1) / RS);
+    RPL = per < GENERAL_ROWS / RS ? per : GENERAL_ROWS / RS;
+    G = RS * RPL;
+    groups = (bm + G - 1) / G;
   }
 };
 
-// The null-mask walk's cells (the Block-ELL shims' zero-padded slab):
-// every cell, x at the tile's block column, 0 past n.
-struct DenseCells {
-  const float* data;
-  const int* tile_cols;
-  const float* x;          // column b0 of x
-  long long col_stride;
-  int bm, bn, n;
-  __device__ __forceinline__ unsigned rows(long long, int, int nr,
-                                           int) const {
-    return (1u << nr) - 1u;
-  }
-  __device__ __forceinline__ float xval(long long t, int j, int b) const {
-    const long long c = (long long)tile_cols[t] * bn + j;
-    return c < n ? x[b * col_stride + c] : 0.f;
-  }
-};
-
-// tile_contrib's cells: every cell of the shard's tiles, x through the
-// lane positions xcol.
-struct FlatCells {
-  const float* data;       // tile 0 of the shard
-  const int* xcol;         // tile 0's lane positions
-  const float* x;          // column b0 of the shard's x buffer
-  long long col_stride;
-  int bm, bn;
-  __device__ __forceinline__ unsigned rows(long long, int, int nr,
-                                           int) const {
-    return (1u << nr) - 1u;
-  }
-  __device__ __forceinline__ float xval(long long t, int j, int b) const {
-    return x[b * col_stride + xcol[t * bn + j]];
-  }
-};
-
-// Tiles lo .. hi-1 of a block row, rows r0 .. r0+nr-1 of each, into
-// `part` (a row and a column each), in the order set out above.
-template <int NB, class Cells>
-__device__ __forceinline__ void general_walk(const Cells& c, int lo, int hi,
-                                             int r0, int nr, int nb,
-                                             float (&part)[GROUP_ROWS][NB]) {
-  const int lane = threadIdx.x % WARP;
-  for (long long t = lo; t < hi; ++t) {
-    for (int j = lane; j < c.bn; j += WARP) {
-      const unsigned on = c.rows(t, r0, nr, j);
-      if (!on) continue;
-      float xv[NB];
+// Bytes 0 .. nbytes-1 (nbytes <= 16) of a mask row piece at m, in loads of
+// W bytes (m aligned to W), little-endian into four words, zeros past.
+__device__ __forceinline__ uint4 load_mask_piece(const unsigned char* m,
+                                                 int nbytes, int W) {
+  if (W == 16) return __ldg(reinterpret_cast<const uint4*>(m));
+  unsigned w[4] = {0u, 0u, 0u, 0u};
+  if (W == 8) {
 #pragma unroll
-      for (int b = 0; b < NB; ++b) xv[b] = b < nb ? c.xval(t, j, b) : 0.f;
-      const float* d = c.data + (t * c.bm + r0) * c.bn + j;
-#pragma unroll
-      for (int i = 0; i < GROUP_ROWS; ++i) {
-        if (!(on >> i & 1u)) continue;
-        const float v = d[(long long)i * c.bn];
-#pragma unroll
-        for (int b = 0; b < NB; ++b)
-          if (b < nb) part[i][b] = fmaf(v, xv[b], part[i][b]);
+    for (int k = 0; k < 2; ++k)
+      if (8 * k < nbytes) {
+        const uint2 v = __ldg(reinterpret_cast<const uint2*>(m) + k);
+        w[2 * k] = v.x, w[2 * k + 1] = v.y;
       }
-    }
+  } else if (W == 4) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (4 * k < nbytes)
+        w[k] = __ldg(reinterpret_cast<const unsigned*>(m) + k);
+  } else if (W == 2) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (2 * k < nbytes)
+        w[k / 2] |= (unsigned)__ldg(reinterpret_cast<const unsigned short*>(m)
+                                    + k) << (16 * (k % 2));
+  } else {
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      if (k < nbytes) w[k / 4] |= (unsigned)__ldg(m + k) << (8 * (k % 4));
   }
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// Each of the group's nr rows summed over the warp (warp_sum), row i of
-// column b stored by lane i at out[b * col_stride + i].
+// tile_walk_spmv with a mask at a shape the fast walk does not take: warp
+// item (mb, g) over Mb block rows of MaskLayout::groups groups.
 template <int NB>
-__device__ __forceinline__ void store_group(
-    const float (&part)[GROUP_ROWS][NB], int nr, int nb, float* out,
-    long long col_stride) {
-  const int lane = threadIdx.x % WARP;
-#pragma unroll
-  for (int i = 0; i < GROUP_ROWS; ++i) {
-    if (i >= nr) break;                         // warp-uniform
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      if (b >= nb) break;
-      const float v = warp_sum(part[i][b]);
-      if (lane == i) out[b * col_stride + i] = v;
-    }
-  }
-}
-
-// tile_walk_spmv at a shape the fast walks do not take: warp item
-// (mb, g) over Mb block rows of ceil(bm / GROUP_ROWS) groups.
-template <int NB, bool MASKED>
 __global__ void tile_walk_general_kernel(
     const float* __restrict__ data, const unsigned char* __restrict__ mask,
     const int* __restrict__ tile_cols, const int* __restrict__ tile_ptr,
     const float* __restrict__ x, int Mb, int bm, int bn, int n, int B,
     float* __restrict__ y) {
-  const int warp = threadIdx.x / WARP;
-  const int groups = (bm + GROUP_ROWS - 1) / GROUP_ROWS;
+  constexpr int S = GENERAL_STEPS;
+  const MaskLayout L(bm, bn);
+  const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
   const long long item = (long long)blockIdx.x * WARPS_PER_BLOCK + warp;
-  if (item >= (long long)Mb * groups) return;
-  const int mb = (int)(item / groups), g = (int)(item % groups);
-  const int r0 = g * GROUP_ROWS, nr = min(GROUP_ROWS, bm - r0);
+  if (item >= (long long)Mb * L.groups) return;
+  const int mb = (int)(item / L.groups), g = (int)(item % L.groups);
+  const int r = lane % L.RG, u = lane / L.RG, row = g * L.RG + r;
   const int b0 = blockIdx.y * NB, nb = min(NB, B - b0);
-  const float* xb = x + (long long)b0 * n;
-  float part[GROUP_ROWS][NB] = {};
-  if (MASKED)
-    general_walk<NB>(MaskedCells{data, mask, tile_cols, xb, n, bm, bn, n},
-                     tile_ptr[mb], tile_ptr[mb + 1], r0, nr, nb, part);
-  else
-    general_walk<NB>(DenseCells{data, tile_cols, xb, n, bm, bn, n},
-                     tile_ptr[mb], tile_ptr[mb + 1], r0, nr, nb, part);
-  const long long R = (long long)Mb * bm;
-  store_group(part, nr, nb, y + b0 * R + (long long)mb * bm + r0, R);
+  const float* xv = x + (long long)b0 * n;
+  const int MB = bn / 8;                     // mask bytes a tile row
+  const int W = min(MB & -MB, 16);
+  const int lo = tile_ptr[mb];
+  const int items = (tile_ptr[mb + 1] - lo) * L.P;
+  float acc[NB];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) acc[b] = 0.f;
+  for (int k0 = u; k0 < items; k0 += L.TPS * S) {
+    // S items at once: their masks and columns, then the first lone cell
+    // of each, all loaded before any is used
+    uint4 m[S];
+    long long xc[S], dr[S];
+    int jf[S];
+    float df[S], xf[S][NB];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int k = k0 + L.TPS * s;
+      m[s] = make_uint4(0u, 0u, 0u, 0u);
+      xc[s] = 0, dr[s] = 0;
+      if (k < items) {
+        const int t = lo + (L.P == 1 ? k : k / L.P);
+        const int p = L.P == 1 ? 0 : k % L.P;
+        const long long tr = (long long)t * bm + row;   // the tile row
+        m[s] = load_mask_piece(mask + tr * MB + 16 * p, min(16, MB - 16 * p),
+                               W);
+        xc[s] = (long long)tile_cols[t] * bn + 128 * p;
+        dr[s] = tr * bn + 128 * p;
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int f = first_lone_cell(m[s]);
+      jf[s] = xc[s] + f < n ? f : -1;          // a mask marks no cell past x
+      const int j = max(jf[s], 0);
+      df[s] = jf[s] >= 0 ? data[dr[s] + j] : 0.f;
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        xf[s][b] = jf[s] >= 0 && b < nb ? xv[(long long)b * n + xc[s] + j]
+                                        : 0.f;
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const float* drow = data + dr[s];
+      const unsigned words[4] = {m[s].x, m[s].y, m[s].z, m[s].w};
+      if (jf[s] >= 0) {
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+          if (b < nb) acc[b] = fmaf(df[s], xf[s][b], acc[b]);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        unsigned bits = column_bits(words[q]);
+        if (jf[s] >> 5 == q) bits &= bits - 1;    // the cell done above
+        if (bits == ~0u && xc[s] + 32 * (q + 1) <= n) {
+          // a full quarter: eight 16-byte loads, the same in-order FMAs
+          float v[32];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            const float4 d4 =
+                __ldg(reinterpret_cast<const float4*>(drow + 32 * q) + c);
+            v[4 * c] = d4.x, v[4 * c + 1] = d4.y, v[4 * c + 2] = d4.z,
+                    v[4 * c + 3] = d4.w;
+          }
+#pragma unroll
+          for (int j = 0; j < 32; ++j)
+#pragma unroll
+            for (int b = 0; b < NB; ++b)
+              if (b < nb)
+                acc[b] = fmaf(v[j], xv[(long long)b * n + xc[s] + 32 * q + j],
+                              acc[b]);
+          continue;
+        }
+        while (bits) {              // the other marked cells, ascending
+          const int j = 32 * q + __ffs(bits) - 1;
+          bits &= bits - 1;
+          if (xc[s] + j >= n) break;   // a mask marks no cell past x
+          const float d = drow[j];
+#pragma unroll
+          for (int b = 0; b < NB; ++b)
+            if (b < nb)
+              acc[b] = fmaf(d, xv[(long long)b * n + xc[s] + j], acc[b]);
+        }
+      }
+    }
+  }
+  // the TPS tile slots of each row, in a fixed butterfly
+  for (int off = L.RG; off < WARP; off *= 2)
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      acc[b] += __shfl_xor_sync(FULL_MASK, acc[b], off);
+  if (u == 0) {
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      if (b < nb)
+        y[(long long)(b0 + b) * Mb * bm + (long long)mb * bm + row] = acc[b];
+  }
+}
+
+// The cells of a V-cell load: a float4 or a float, and its x positions.
+template <int V> struct CellVec;
+template <> struct CellVec<4> { using F = float4; using I = int4; };
+template <> struct CellVec<1> { using F = float; using I = int; };
+
+__device__ __forceinline__ float cell(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float cell(float v, int) { return v; }
+__device__ __forceinline__ int cell(const int4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ int cell(int v, int) { return v; }
+
+// The null-mask walk's cells: x at the tile's block column, 0 past n.
+template <int NB, int V>
+struct GeneralBlockCells {
+  using F = typename CellVec<V>::F;
+  using Pos = long long;          // x column of the load's first cell
+  const float* data;
+  const int* tile_cols;
+  const float* x;                 // column b0 of x
+  int bm, bn, n, nb;
+  __device__ __forceinline__ F load(int t, int row, int w) const {
+    return __ldg(reinterpret_cast<const F*>(
+                     data + ((long long)t * bm + row) * bn) + w);
+  }
+  __device__ __forceinline__ Pos pos(int t, int w) const {
+    return (long long)tile_cols[t] * bn + V * w;
+  }
+  __device__ __forceinline__ void gather(Pos c, float (&xv)[V][NB]) const {
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      if (b >= nb) break;
+      const float* xb = x + (long long)b * n;
+#pragma unroll
+      for (int j = 0; j < V; ++j) xv[j][b] = c + j < n ? xb[c + j] : 0.f;
+    }
+  }
+};
+
+// tile_contrib's cells: x through the lane positions xcol.
+template <int NB, int V>
+struct GeneralFlatCells {
+  using F = typename CellVec<V>::F;
+  using Pos = typename CellVec<V>::I;
+  const float* data;              // tile 0 of the shard
+  const int* xcol;                // tile 0's lane positions
+  const float* x;                 // column b0 of the shard's x buffer
+  long long Lx;
+  int bm, bn, nb;
+  __device__ __forceinline__ F load(int t, int row, int w) const {
+    return __ldg(reinterpret_cast<const F*>(
+                     data + ((long long)t * bm + row) * bn) + w);
+  }
+  __device__ __forceinline__ Pos pos(int t, int w) const {
+    return __ldg(reinterpret_cast<const Pos*>(xcol + (long long)t * bn) + w);
+  }
+  __device__ __forceinline__ void gather(const Pos& c,
+                                         float (&xv)[V][NB]) const {
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      if (b >= nb) break;
+      const float* xb = x + b * Lx;
+#pragma unroll
+      for (int j = 0; j < V; ++j) xv[j][b] = xb[cell(c, j)];
+    }
+  }
+};
+
+// Tiles lo .. hi-1 of a block row, the rows of group g the lane owns, into
+// `part` (a row and a column each), in the order set out above.
+template <int NB, int V, int R, class Cells>
+__device__ __forceinline__ void cells_walk(const Cells& c, const CellLayout& L,
+                                           int lo, int hi, int g, int bm,
+                                           float (&part)[R][NB]) {
+  using F = typename CellVec<V>::F;
+  using Pos = typename Cells::Pos;
+  constexpr int GP = GENERAL_PREFETCH;
+  const int lane = threadIdx.x % WARP;
+  const int v = lane % L.LR, r = (lane / L.LR) % L.RS;
+  const int u = lane / (L.LR * L.RS), r0 = g * L.G + r;
+  const int items = (hi - lo) * L.NC;
+  // item k: tile lo + k / NC, the lane's load (k % NC) * LR + v of it
+  auto load_of = [&](int k) { return (L.NC == 1 ? 0 : k % L.NC) * L.LR + v; };
+  auto load = [&](int k, F (&d)[R], Pos& p) {
+    const int t = lo + (L.NC == 1 ? k : k / L.NC), w = load_of(k);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      d[i] = F{};
+      if (w < L.CV && r0 + L.RS * i < bm) d[i] = c.load(t, r0 + L.RS * i, w);
+    }
+    p = Pos{};
+    if (w < L.CV) p = c.pos(t, w);
+  };
+  F ring[GP][R];
+  Pos pos[GP];
+#pragma unroll
+  for (int p = 0; p < GP; ++p)
+    if (u + L.TPS * p < items) load(u + L.TPS * p, ring[p], pos[p]);
+  float xv[V][NB] = {};
+  if (u < items && load_of(u) < L.CV) c.gather(pos[0], xv);
+  for (int k0 = u; k0 < items; k0 += L.TPS * GP) {
+#pragma unroll
+    for (int p = 0; p < GP; ++p) {
+      const int k = k0 + L.TPS * p;
+      if (k >= items) break;
+      F d[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) d[i] = ring[p][i];
+      if (k + L.TPS * GP < items) load(k + L.TPS * GP, ring[p], pos[p]);
+      float xn[V][NB] = {};
+      const int kn = k + L.TPS;
+      if (kn < items && load_of(kn) < L.CV) c.gather(pos[(p + 1) % GP], xn);
+      if (load_of(k) < L.CV) {
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+#pragma unroll
+          for (int b = 0; b < NB; ++b) {
+            if (b >= c.nb) break;
+#pragma unroll
+            for (int j = 0; j < V; ++j)
+              part[i][b] = fmaf(cell(d[i], j), xv[j][b], part[i][b]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+#pragma unroll
+        for (int b = 0; b < NB; ++b) xv[j][b] = xn[j][b];
+    }
+  }
+}
+
+// Each of the lane's rows summed over the lanes that share it (the
+// butterfly over the tile-slot and cell bits, offsets 16 .. 1; every lane
+// at LR = 32, RS = 1, as warp_sum), row g*G + r + RS*i of column b stored
+// by lane (0, r, 0) at out[b * col_stride + row].
+template <int NB, int R>
+__device__ __forceinline__ void store_cells(
+    const float (&part)[R][NB], const CellLayout& L, int g, int bm, int nb,
+    float* out, long long col_stride) {
+  const int lane = threadIdx.x % WARP;
+  const int v = lane % L.LR, r = (lane / L.LR) % L.RS;
+  const int u = lane / (L.LR * L.RS);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = g * L.G + r + L.RS * i;
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      if (b >= nb) break;
+      float s = part[i][b];
+#pragma unroll
+      for (int off = WARP / 2; off > 0; off /= 2)
+        if (off < L.LR || off >= L.LR * L.RS)
+          s += __shfl_xor_sync(FULL_MASK, s, off);
+      if (u == 0 && v == 0 && row < bm) out[b * col_stride + row] = s;
+    }
+  }
+}
+
+// tile_walk_spmv without a mask at a shape the fast walk does not take:
+// warp item (mb, g) over Mb block rows of CellLayout::groups groups, R =
+// CellLayout::RPL rows a lane.
+template <int NB, int V, int R>
+__global__ void tile_walk_general_dense_kernel(
+    const float* __restrict__ data, const int* __restrict__ tile_cols,
+    const int* __restrict__ tile_ptr, const float* __restrict__ x, int Mb,
+    int bm, int bn, int n, int B, float* __restrict__ y) {
+  const CellLayout L(bm, bn);
+  const int warp = threadIdx.x / WARP;
+  const long long item = (long long)blockIdx.x * WARPS_PER_BLOCK + warp;
+  if (item >= (long long)Mb * L.groups) return;
+  const int mb = (int)(item / L.groups), g = (int)(item % L.groups);
+  const int b0 = blockIdx.y * NB, nb = min(NB, B - b0);
+  const GeneralBlockCells<NB, V> c{data, tile_cols, x + (long long)b0 * n,
+                                   bm, bn, n, nb};
+  float part[R][NB] = {};
+  cells_walk<NB, V, R>(c, L, tile_ptr[mb], tile_ptr[mb + 1], g, bm, part);
+  const long long rows = (long long)Mb * bm;
+  store_cells(part, L, g, bm, nb, y + b0 * rows + (long long)mb * bm, rows);
 }
 
 // tile_contrib at a shape other than (8, 128): blocks below tile_blocks
 // hold warp items (k, mb < rb_used, g); the others zero rows
-// rb_used*bm .. R of every listed shard and column, a float a store (bm
-// and so the rows' starts are not multiples of 4 in general).
-template <int NB>
+// rb_used*bm .. Rb*bm of every listed shard and column, a float a store
+// (bm and so the rows' starts are not multiples of 4 in general).  R =
+// CellLayout::RPL rows a lane.
+template <int NB, int V, int R>
 __global__ void tile_contrib_general_kernel(
     const float* __restrict__ data, const int* __restrict__ xcol,
     const int* __restrict__ tile_ptr, const float* __restrict__ x,
     long long x_stride, const int* __restrict__ sids, int n_sids, int Tp,
     int Rb, int rb_used, int bm, int bn, int Lx, int B, int tile_blocks,
     float* __restrict__ y) {
-  const long long R = (long long)Rb * bm;
+  const long long rows = (long long)Rb * bm;
   const int b0 = blockIdx.y * NB, nb = min(NB, B - b0);
   if ((int)blockIdx.x >= tile_blocks) {
-    zero_rows_past<float>(y, sids, n_sids, B, b0, nb, R,
+    zero_rows_past<float>(y, sids, n_sids, B, b0, nb, rows,
                           (long long)rb_used * bm, tile_blocks);
     return;
   }
+  const CellLayout L(bm, bn);
   const int warp = threadIdx.x / WARP;
-  const int groups = (bm + GROUP_ROWS - 1) / GROUP_ROWS;
-  const long long per_shard = (long long)rb_used * groups;
+  const long long per_shard = (long long)rb_used * L.groups;
   const long long item = (long long)blockIdx.x * WARPS_PER_BLOCK + warp;
   if (item >= (long long)n_sids * per_shard) return;
   const int k = (int)(item / per_shard);
   const long long rem = item % per_shard;
-  const int mb = (int)(rem / groups), g = (int)(rem % groups);
-  const int r0 = g * GROUP_ROWS, nr = min(GROUP_ROWS, bm - r0);
+  const int mb = (int)(rem / L.groups), g = (int)(rem % L.groups);
   const int sid = sids[k];
   const int* ptr = tile_ptr + (long long)sid * (Rb + 1);
   const long long tile0 = (long long)sid * Tp;
-  float part[GROUP_ROWS][NB] = {};
-  general_walk<NB>(FlatCells{data + tile0 * bm * bn, xcol + tile0 * bn,
-                             shard_x(x, x_stride, sid, b0, Lx), Lx, bm, bn},
-                   ptr[mb], ptr[mb + 1], r0, nr, nb, part);
-  store_group(part, nr, nb,
-              y + ((long long)sid * B + b0) * R + (long long)mb * bm + r0, R);
+  const GeneralFlatCells<NB, V> c{data + tile0 * bm * bn, xcol + tile0 * bn,
+                                  shard_x(x, x_stride, sid, b0, Lx), Lx, bm,
+                                  bn, nb};
+  float part[R][NB] = {};
+  cells_walk<NB, V, R>(c, L, ptr[mb], ptr[mb + 1], g, bm, part);
+  store_cells(part, L, g, bm, nb,
+              y + ((long long)sid * B + b0) * rows + (long long)mb * bm, rows);
+}
+
+// The null-mask general walk with R rows a lane, R the layout's RPL (a
+// power of two <= GENERAL_ROWS).
+template <int NB, int V, int R = 1>
+void launch_dense_walk(int rpl, dim3 grid, cudaStream_t s, const float* data,
+                       const int* tile_cols, const int* tile_ptr,
+                       const float* x, int Mb, int bm, int bn, int n, int B,
+                       float* y) {
+  if constexpr (R < GENERAL_ROWS)
+    if (rpl > R)
+      return launch_dense_walk<NB, V, 2 * R>(rpl, grid, s, data, tile_cols,
+                                             tile_ptr, x, Mb, bm, bn, n, B,
+                                             y);
+  tile_walk_general_dense_kernel<NB, V, R><<<grid, WARPS_PER_BLOCK * WARP, 0,
+                                             s>>>(data, tile_cols, tile_ptr,
+                                                  x, Mb, bm, bn, n, B, y);
 }
 
 // One launch of the tile walk for NB columns a thread: the fast walks at
@@ -658,23 +949,51 @@ void launch_tile_walk(bool fast, dim3 grid, cudaStream_t s, const float* data,
     tile_walk_dense_kernel<NB><<<grid, threads, 0, s>>>(
         data, tile_cols, tile_ptr, x, Mb, bm, n, B, y);
   else if (mask)
-    tile_walk_general_kernel<NB, true><<<grid, threads, 0, s>>>(
+    tile_walk_general_kernel<NB><<<grid, threads, 0, s>>>(
         data, mask, tile_cols, tile_ptr, x, Mb, bm, bn, n, B, y);
+  else if (bn % 4 == 0)
+    launch_dense_walk<NB, 4>(CellLayout(bm, bn).RPL, grid, s, data,
+                             tile_cols, tile_ptr, x, Mb, bm, bn, n, B, y);
   else
-    tile_walk_general_kernel<NB, false><<<grid, threads, 0, s>>>(
-        data, mask, tile_cols, tile_ptr, x, Mb, bm, bn, n, B, y);
+    launch_dense_walk<NB, 1>(CellLayout(bm, bn).RPL, grid, s, data,
+                             tile_cols, tile_ptr, x, Mb, bm, bn, n, B, y);
+}
+
+// tile_contrib's general kernel for V cells a load and R rows a lane (R
+// the layout's RPL), NB columns a thread.
+template <int V, int R = 1>
+void launch_contrib_cells(int rpl, dim3 grid, cudaStream_t s,
+                          const float* data, const int* xcol,
+                          const int* tile_ptr, const float* x,
+                          long long x_stride, const int* sids, int n_sids,
+                          int Tp, int Rb, int rb_used, int bm, int bn, int Lx,
+                          int B, int tile_blocks, float* y) {
+  if constexpr (R < GENERAL_ROWS)
+    if (rpl > R)
+      return launch_contrib_cells<V, 2 * R>(
+          rpl, grid, s, data, xcol, tile_ptr, x, x_stride, sids, n_sids, Tp,
+          Rb, rb_used, bm, bn, Lx, B, tile_blocks, y);
+  constexpr int threads = WARPS_PER_BLOCK * WARP;
+  if (B == 1)
+    tile_contrib_general_kernel<1, V, R><<<grid, threads, 0, s>>>(
+        data, xcol, tile_ptr, x, x_stride, sids, n_sids, Tp, Rb, rb_used, bm,
+        bn, Lx, B, tile_blocks, y);
+  else
+    tile_contrib_general_kernel<RHS_CHUNK, V, R><<<grid, threads, 0, s>>>(
+        data, xcol, tile_ptr, x, x_stride, sids, n_sids, Tp, Rb, rb_used, bm,
+        bn, Lx, B, tile_blocks, y);
 }
 
 // tile_contrib at a shape other than (8, 128): the grid of the fast path
-// with ceil(bm / GROUP_ROWS) warps a block row, and fill blocks of
+// with CellLayout::groups warps a block row, and fill blocks of
 // FILL_STORES 4-byte stores a thread.
 int launch_contrib_general(const float* data, const int* xcol,
                            const int* tile_ptr, const float* x,
                            long long x_stride, const int* sids, int n_sids,
                            int Tp, int Rb, int rb_used, int bm, int bn,
                            int Lx, int B, float* y, cudaStream_t s) {
-  const int groups = (bm + GROUP_ROWS - 1) / GROUP_ROWS;
-  const long long items = (long long)n_sids * rb_used * groups;
+  const CellLayout L(bm, bn);
+  const long long items = (long long)n_sids * rb_used * L.groups;
   const long long tile_blocks =
       (items + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
   const int nb = B < RHS_CHUNK ? B : RHS_CHUNK;   // columns of chunk 0
@@ -685,15 +1004,14 @@ int launch_contrib_general(const float* data, const int* xcol,
   if (tile_blocks + fill_blocks == 0) return 0;
   const dim3 grid((unsigned)(tile_blocks + fill_blocks),
                   (unsigned)((B + RHS_CHUNK - 1) / RHS_CHUNK));
-  const int threads = WARPS_PER_BLOCK * WARP;
-  if (B == 1)
-    tile_contrib_general_kernel<1><<<grid, threads, 0, s>>>(
-        data, xcol, tile_ptr, x, x_stride, sids, n_sids, Tp, Rb, rb_used, bm,
-        bn, Lx, B, (int)tile_blocks, y);
+  if (bn % 4 == 0)
+    launch_contrib_cells<4>(L.RPL, grid, s, data, xcol, tile_ptr, x,
+                            x_stride, sids, n_sids, Tp, Rb, rb_used, bm, bn,
+                            Lx, B, (int)tile_blocks, y);
   else
-    tile_contrib_general_kernel<RHS_CHUNK><<<grid, threads, 0, s>>>(
-        data, xcol, tile_ptr, x, x_stride, sids, n_sids, Tp, Rb, rb_used, bm,
-        bn, Lx, B, (int)tile_blocks, y);
+    launch_contrib_cells<1>(L.RPL, grid, s, data, xcol, tile_ptr, x,
+                            x_stride, sids, n_sids, Tp, Rb, rb_used, bm, bn,
+                            Lx, B, (int)tile_blocks, y);
   return (int)cudaGetLastError();
 }
 
@@ -702,8 +1020,8 @@ int launch_contrib_general(const float* data, const int* xcol,
 // data (T, bm, bn), mask (T, bm, bn/8) packed occupancy or null (every
 // cell occupied), tile_cols (T,), tile_ptr (Mb+1,), x (B, n),
 // y (B, Mb*bm); bm, bn >= 1, and bn % 8 == 0 with a mask.  One warp per
-// (block row, group of 8 rows) on the fast walks, of GROUP_ROWS rows on
-// the general ones.
+// (block row, group of 8 rows) on the fast walks, of MaskLayout's or
+// CellLayout's groups on the general ones.
 RT_API int rt_tile_walk_spmv(const float* data, const unsigned char* mask,
                              const int* tile_cols, const int* tile_ptr,
                              const float* x, int Mb, int bm, int bn, int n,
@@ -711,7 +1029,9 @@ RT_API int rt_tile_walk_spmv(const float* data, const unsigned char* mask,
   if (bm <= 0 || bn <= 0 || (mask && bn % 8))
     return (int)cudaErrorInvalidValue;
   const bool fast = bn == 128 && bm % 8 == 0;
-  const int groups = fast ? bm / 8 : (bm + GROUP_ROWS - 1) / GROUP_ROWS;
+  const int groups = fast   ? bm / 8
+                     : mask ? MaskLayout(bm, bn).groups
+                            : CellLayout(bm, bn).groups;
   const long long items = (long long)Mb * groups;
   if (items == 0 || B == 0) return 0;
   const unsigned blocks =

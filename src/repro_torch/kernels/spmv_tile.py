@@ -34,7 +34,10 @@
 
 Both take any tile shape: (8, 128) tiles (``tile_contrib``) and (8k, 128)
 tiles (``tile_walk_spmv``) run the fast walks, every other shape a general
-walk (one warp per 8-row group, lanes across the row in 32-cell strides).
+walk that reads what the fast ones read (the masked walk a tile row's mask
+bytes in one aligned load, then its marked cells; the others every cell,
+16 bytes a load where bn % 4 == 0), with every lane of a warp busy at
+power-of-two shapes.
 """
 from __future__ import annotations
 

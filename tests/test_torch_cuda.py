@@ -260,13 +260,15 @@ def test_tile_walk_reads_only_occupied_cells(device, bm, B):
     assert torch.equal(walk(poisoned), walk(zeroed))
 
 
-def test_bell_shim_null_mask_on_card(device):
+@pytest.mark.parametrize("shape", [(8, 128), (16, 16), (5, 10), (16, 6)])
+def test_bell_shim_null_mask_on_card(device, shape):
     # the Block-ELL slab has no mask: every cell is read, zero-padded
-    # block slots included
+    # block slots included; (8, 128) takes the fast walk, the others the
+    # general one, 16-byte loads at bn % 4 == 0 and 4-byte ones else
     A = _stored_zeros(_cut_tail())
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
-        blocks, bcols = ops.bell_from_bcsr(csr_to_bcsr(A, (8, 128)))
+        blocks, bcols = ops.bell_from_bcsr(csr_to_bcsr(A, shape))
         X = _x(A.ncols, 11)
         Y = ops.bell_spmm(blocks, bcols, X, device=device)
         Y_cpu = ops.bell_spmm(blocks, bcols, X, device="cpu")
@@ -488,10 +490,11 @@ def test_long_chunk_ops_on_card(device, chunk):
 
 
 #: Tile shapes the fast walks do not all take: (16, 128) is the mask walk's
-#: fast path and tile_contrib's general one; bm = 12 and 5 cut the last row
-#: group, bn = 40 the last lane stride.
+#: fast path and tile_contrib's general one; bm = 5 leaves row slots of a
+#: warp empty, bn = 40 lanes of a row (and reads the mask a byte at a time);
+#: (16, 16) and (32, 32) are the kernel_api phase's general shapes.
 SHAPES = [(8, 256), (16, 64), (4, 128), (8, 64), (16, 128), (12, 40),
-          (5, 40)]
+          (5, 40), (16, 16), (32, 32)]
 
 
 def flat_tile_case(t, n, B, *, shared_x=False, seed=0):
@@ -600,6 +603,28 @@ def test_tile_flat_spmv_at_any_shape_on_card(device, bm, bn):
                                atol=2e-4)
     for b in range(3):
         assert torch.equal(Y[:, b], run(X[:, b].copy()))
+
+
+@pytest.mark.parametrize("bm,bn", [(5, 10), (16, 6), (3, 1)])
+def test_tile_flat_spmv_at_odd_widths_on_card(device, bm, bn):
+    # tile_contrib's general walk one cell a load (bn % 4 != 0), on the
+    # csr_to_bcsr blocks as flat tiles
+    A = _stored_zeros(_cut_tail())
+    b = csr_to_bcsr(A, (bm, bn))
+    xcols = np.minimum(b.block_cols[:, None].astype(np.int64) * bn
+                       + np.arange(bn), A.ncols - 1)
+    trows = np.repeat(np.arange(len(b.block_row_ptr) - 1),
+                      np.diff(b.block_row_ptr))
+    X = _x(A.ncols, 11)
+
+    def run(v):
+        return ops.tile_flat_spmv(b.blocks, xcols, trows, v,
+                                  num_rows=A.nrows, device=device)
+    Y = run(X)
+    np.testing.assert_allclose(Y.cpu(), csr_matvec(A, X), rtol=2e-4,
+                               atol=2e-4)
+    for c in (0, 7, 8, 10):
+        assert torch.equal(Y[:, c], run(X[:, c].copy()))
 
 
 def _plan_matrix(name):

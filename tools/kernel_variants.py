@@ -15,6 +15,16 @@ launches with CUDA events (replayed as CUDA graphs), two turns in a row:
 * ``tile``: ``spmv_tile.cu``'s ``STEPS`` (warp steps whose masks and first
   cells the tile walk loads at once): 1, 2, 4, 8, on the api/tile case of
   ``chip_smoke.py`` (``tile_from_csr(blocked_band(131072, 32·131072))``);
+* ``general``: the general walks' constants in ``spmv_tile.cu``:
+  ``GENERAL_GROUP`` (the most rows a warp of the masked walk owns) 8, 4, 2
+  by ``GENERAL_STEPS`` (items whose masks and first cells it loads at
+  once) 1, 2, on the api/tile16x64 and api/tile32x32 cases;
+  ``GENERAL_PREFETCH`` (items the null-mask and ``tile_contrib`` walks
+  load ahead of the adds): 1, 2, 4, and ``GENERAL_ROWS`` (the most rows a
+  warp of those walks holds): 2, 4, 8, 16, on api/bell16x16 (the
+  null-mask walk on the (16, 16) Block-ELL slab of
+  ``blocked_band(16384, 32·16384)``) and api/tile_flat16x128
+  (``tile_contrib`` on that matrix's (16, 128) flat tile operands);
 * ``ell``: ``spmv_ell.cu``'s ``G`` (lanes a row): 4, 8, 16, 32, on one
   SpMV's ``ell_spmv`` launches (both passes, each family) of the
   cop20k_A/ell and blocked_band programs of ``chip_smoke.py``, and on the
@@ -55,22 +65,29 @@ sys.path.insert(0, str(ROOT / "src"))
 TOL = 1e-5
 
 
-def build(source: str, const: str, values, symbol: str) -> dict:
+def build(source: str, const, values, symbol) -> dict:
     """value -> the C launcher ``symbol`` of ``source`` compiled with
-    ``constexpr int <const> = value``."""
+    ``constexpr int <const> = value`` (a tuple of symbols: a tuple of
+    launchers; a tuple of constants: each value a tuple of theirs)."""
     from repro_torch.kernels import _lib
 
     src = (_lib.CSRC / source).read_text()
-    decl = re.compile(rf"constexpr int {const} = \d+;")
-    if not decl.search(src):
-        raise RuntimeError(f"{source} has no constexpr {const}")
+    names = (const,) if isinstance(const, str) else const
+    decls = [re.compile(rf"constexpr int {c} = \d+;") for c in names]
+    for c, decl in zip(names, decls):
+        if not decl.search(src):
+            raise RuntimeError(f"{source} has no constexpr {c}")
     out = ROOT / "build" / "kernel_variants"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for v in values:
-        stem = out / f"{Path(source).stem}_{const}{v}"
-        stem.with_suffix(".cu").write_text(
-            decl.sub(f"constexpr int {const} = {v};", src))
+        vs = (v,) if isinstance(const, str) else v
+        text = src
+        for c, decl, x in zip(names, decls, vs):
+            text = decl.sub(f"constexpr int {c} = {x};", text)
+        tag = "_".join(f"{c}{x}" for c, x in zip(names, vs))
+        stem = out / f"{Path(source).stem}_{tag}"
+        stem.with_suffix(".cu").write_text(text)
         so, cu = stem.with_suffix(".so"), stem.with_suffix(".cu")
         procs[v] = (so, subprocess.Popen(
             [_lib._nvcc(), *_lib.NVCC_FLAGS, "-shared", "-I", str(_lib.CSRC),
@@ -81,13 +98,38 @@ def build(source: str, const: str, values, symbol: str) -> dict:
         text, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {const} = {v}:\n{text}")
-        print(json.dumps({"source": source, const: v, "ptxas": [
-            ln.strip() for ln in text.splitlines() if "Used" in ln]}))
-        fn = getattr(ctypes.CDLL(str(so)), symbol)
-        fn.argtypes = _lib._SIGNATURES[symbol]
-        fn.restype = ctypes.c_int
-        fns[v] = fn
+        print(json.dumps({"source": source, label(const): v,
+                          "ptxas": registers(text)}))
+        lib = ctypes.CDLL(str(so))
+        got = []
+        for sym in (symbol,) if isinstance(symbol, str) else symbol:
+            fn = getattr(lib, sym)
+            fn.argtypes = _lib._SIGNATURES[sym]
+            fn.restype = ctypes.c_int
+            got.append(fn)
+        fns[v] = got[0] if isinstance(symbol, str) else tuple(got)
     return fns
+
+
+def label(const) -> str:
+    return const if isinstance(const, str) else ",".join(const)
+
+
+def registers(text: str) -> dict:
+    """Each kernel's registers (and spill stores) from a ``ptxas -v`` report,
+    by its mangled name."""
+    out, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name and int(m.group(1)):
+            out[name + " spill"] = int(m.group(1))
+    return out
 
 
 def sweep(torch, case, const, fns, launch, check):
@@ -96,12 +138,12 @@ def sweep(torch, case, const, fns, launch, check):
 
     for v, fn in fns.items():
         launch(fn)
-        check(f"{case} {const}={v}")
+        check(f"{case} {label(const)}={v}")
     for turn in range(2):
         for v, fn in fns.items():
             ms = cs.graph_ms(torch, lambda fn=fn: launch(fn))
-            print(json.dumps({"case": case, const: v, "turn": turn,
-                              "ms": ms}))
+            print(json.dumps({"case": case, label(const): v,
+                              "turn": turn, "ms": ms}))
 
 
 def close(torch, got, want, scale, what):
@@ -184,6 +226,109 @@ def tile_cases(torch, dev, rng):
                 data.abs(), tcols, tptr, xb.abs(), torch.empty_like(y))
             close(torch, y, want, scale, what)
         sweep(torch, f"api/tile B={B}", "STEPS", fns, launch, check)
+
+
+def general_cases(torch, dev, rng):
+    import warnings
+
+    from repro_torch.core.sparse_matrix import csr_to_bcsr
+    from repro_torch.data import matrices as mats
+    from repro_torch.kernels import ops, spmv_tile
+
+    masked = ("GENERAL_GROUP", "GENERAL_STEPS")
+    steps = build("spmv_tile.cu", masked, [(g, s) for g in (8, 4, 2)
+                                           for s in (1, 2)],
+                  "rt_tile_walk_spmv")
+    both = ("rt_tile_walk_spmv", "rt_tile_spmv")
+    cells = {const: build("spmv_tile.cu", const, values, both)
+             for const, values in (
+                 ("GENERAL_PREFETCH", (1, 2, 4)),
+                 ("GENERAL_ROWS", (2, 4, 8, 16)))}
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def card(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in arrays]
+
+    def walk_sweep(case, const, fns, data, tcols, tptr, mask, n, pick):
+        T, bm, bn = data.shape
+        Mb = tptr.numel() - 1
+        for B in (1, 8):
+            xb = torch.from_numpy(rng.standard_normal((B, n)).astype(
+                np.float32)).to(dev)
+            y = torch.empty((B, Mb * bm), device=dev)
+
+            def launch(fn, x=xb, out=y):
+                err = pick(fn)(data.data_ptr(),
+                               None if mask is None else mask.data_ptr(),
+                               tcols.data_ptr(), tptr.data_ptr(), x.data_ptr(),
+                               Mb, bm, bn, n, x.shape[0], out.data_ptr(),
+                               stream())
+                if err:
+                    raise RuntimeError(f"launch failed: cudaError {err}")
+
+            def check(what, xb=xb, y=y):
+                want = spmv_tile.tile_walk_spmv_plain(data, tcols, tptr, xb,
+                                                      torch.empty_like(y))
+                scale = spmv_tile.tile_walk_spmv_plain(
+                    data.abs(), tcols, tptr, xb.abs(), torch.empty_like(y))
+                close(torch, y, want, scale, what)
+            sweep(torch, f"{case} B={B}", const, fns, launch, check)
+
+    M = 131072
+    band = mats.blocked_band(M, 32 * M, seed=0)
+    for label, bm, bn in (("api/tile16x64", 16, 64),
+                          ("api/tile32x32", 32, 32)):
+        t = ops.tile_from_csr(band, bm=bm, bn=bn)
+        data, tcols, tptr, mask = card(t.data, t.tile_cols, t.tile_ptr,
+                                       t.mask)
+        walk_sweep(label, masked, steps, data, tcols, tptr, mask,
+                   band.ncols, lambda fn: fn)
+        del t, data, tcols, tptr, mask
+    small = mats.blocked_band(16384, 32 * 16384, seed=0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        blocks, bcols = ops.bell_from_bcsr(csr_to_bcsr(small, (16, 16)))
+    Mb, K = bcols.shape
+    data, tcols = card(blocks.reshape(Mb * K, 16, 16), bcols.reshape(-1))
+    tptr = torch.arange(Mb + 1, dtype=torch.int32, device=dev) * K
+    for const, fns in cells.items():
+        walk_sweep("api/bell16x16", const, fns, data, tcols, tptr, None,
+                   small.ncols, lambda fn: fn[0])
+    # tile_contrib on the (16, 128) flat operands, as tile_flat_spmv
+    # launches it: one shard, every block row walked
+    t = ops.tile_from_csr(small, bm=16, bn=128)
+    n, (T, bm, bn) = small.ncols, t.data.shape
+    Rb = -(-small.nrows // bm)
+    xcols = np.minimum(t.tile_cols[:, None].astype(np.int64) * bn
+                       + np.arange(bn), n - 1).astype(np.int32)
+    data, xcol, brow = card(t.data[None], xcols[None], t.tile_rows[None])
+    ptr = ops._ranges(brow[0], Rb)[None]
+    sids = torch.zeros(1, dtype=torch.int32, device=dev)
+    for const, fns in cells.items():
+        for B in (1, 8):
+            x = torch.from_numpy(rng.standard_normal((1, B, n)).astype(
+                np.float32)).to(dev)
+            out = torch.empty((1, B, Rb * bm), device=dev)
+
+            def launch(fn, x=x, out=out):
+                err = fn[1](data.data_ptr(), xcol.data_ptr(), ptr.data_ptr(),
+                            x.data_ptr(), 0, sids.data_ptr(), 1, T, Rb, Rb,
+                            bm, bn, n, x.shape[1], out.data_ptr(), stream())
+                if err:
+                    raise RuntimeError(f"launch failed: cudaError {err}")
+
+            def check(what, x=x, out=out):
+                want = spmv_tile.tile_contrib_plain(data, xcol, brow, x, sids,
+                                                    torch.empty_like(out))
+                scale = spmv_tile.tile_contrib_plain(
+                    data.abs(), xcol, brow, x.abs(), sids,
+                    torch.empty_like(out))
+                close(torch, out, want, scale, what)
+            sweep(torch, f"api/tile_flat16x128 B={B}", const, fns, launch,
+                  check)
 
 
 def ell_cases(torch, dev, rng, phases):
@@ -378,7 +523,7 @@ def seg_cases(torch, dev, rng, phases):
 
 def main(argv=None) -> int:
     sweeps = {"contrib": contrib_cases, "tile": tile_cases,
-              "ell": ell_cases, "seg": seg_cases}
+              "general": general_cases, "ell": ell_cases, "seg": seg_cases}
     names = (sys.argv[1:] if argv is None else argv) or list(sweeps)
     if set(names) - set(sweeps):
         print(f"kernel_variants: unknown sweep in {names}; choose from "
@@ -395,13 +540,15 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
-    phases = [(label, build_matrix(), plans)
-              for label, build_matrix, plans in cs.phases()]
+    phases = None
     for name in names:
-        if name == "tile":
-            tile_cases(torch, dev, rng)
-        else:
-            sweeps[name](torch, dev, rng, phases)
+        if name in ("tile", "general"):
+            sweeps[name](torch, dev, rng)
+            continue
+        if phases is None:
+            phases = [(label, build_matrix(), plans)
+                      for label, build_matrix, plans in cs.phases()]
+        sweeps[name](torch, dev, rng, phases)
     return 0
 
 
