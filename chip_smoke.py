@@ -12,8 +12,9 @@ points (``lower``, ``make_program_spmv_fn``, ``gather_b``), a
 (``repro_torch.serve``), an ``lm_serve`` phase through the LM
 ``Engine``, an ``lm_train`` phase through ``make_train_step`` and
 ``train_loop``, an ``lm_train_sharded`` phase through the sharded
-step on a ``torch.distributed`` mesh, and an ``examples`` phase through
-the six scripts of ``examples_torch/``:
+step on a ``torch.distributed`` mesh, an ``spmv_mesh`` phase through the
+SpMV executor on such a mesh, and an ``examples`` phase through the six
+scripts of ``examples_torch/``:
 
 * ``planner``: ``autotune(make_matrix("cop20k_A"), num_shards=8)`` at
   the full Table-I size (120,000 rows) with the default probe must pick
@@ -121,6 +122,18 @@ the six scripts of ``examples_torch/``:
   (no cell may fail).  No fallback: a failed group or collective fails
   the run; no sparse kernel may launch.  Prints one
   ``{"lm_train_sharded": ...}`` line;
+* ``spmv_mesh``: a world-size-1 NCCL group as above and a ("model",)
+  mesh over it; the programs of cop20k_A under the autotuner's pick (a
+  halo reader) and ``cyclic/allgather/ell`` (the uniform all-gather),
+  blocked_band's mixed plan and powerlaw_tail's ``split`` answer a
+  vector and an (N, 8) block through ``make_program_spmv_fn(prog,
+  mesh)`` (the exchange an ``all_to_all_single`` or an all-gather, the
+  y gathered by ``gather_b`` over the mesh), ``pipeline`` on and off:
+  bitwise the one-device executor, within the scaled 2e-4 of
+  ``csr_matvec``, each collective's bytes those of the buffers' sizes;
+  eager ms of a call against the one-device executor's (medians of 10);
+  every executor kernel must launch.  Prints one ``{"spmv_mesh": ...}``
+  line;
 * ``examples``: each script's ``main`` on the card, its printout sent to
   stderr: ``quickstart`` and ``reorder_study`` (host only) return their
   tables; ``autotune_serve`` serves its four tenants through the
@@ -635,13 +648,17 @@ def planner_phase(torch, A, device, seed, bundle) -> tuple:
     return choice, out
 
 
-def run_program(torch, label, A, plan, singles, block, device) -> dict:
-    """Answer the requests, check them and measure the kernels."""
+def run_program(torch, label, A, plan, singles, block, device,
+                programs=None) -> dict:
+    """Answer the requests, check them and measure the kernels; the
+    lowered program goes into ``programs`` under ``label``, where given."""
     from repro_torch.core import program as P
     from repro_torch.kernels import _lib
 
     t0 = time.perf_counter()
     prog = P.lower(A, plan)
+    if programs is not None:
+        programs[label] = (A, prog)
     fn = P.make_program_spmv_fn(prog, device=device)
     torch.cuda.synchronize()
     lower_s = time.perf_counter() - t0
@@ -2011,6 +2028,174 @@ def lm_train_sharded_phase(torch, device, seed, one) -> dict:
     return out
 
 
+#: The executor phases that ``spmv_mesh`` drives again over the mesh:
+#: a halo reader (the autotuner's pick), the uniform all-gather, the
+#: mixed plan that reaches every executor family, and ``split``.
+MESH_CASES = ("cop20k_A/seg", "cop20k_A/ell", "blocked_band",
+              "powerlaw_tail")
+#: Timed calls of each executor a case and width (the median is kept).
+MESH_ITERS = 10
+
+
+@contextlib.contextmanager
+def sent_bytes():
+    """The input bytes (what this rank sends) of every all-to-all and
+    all-gather issued inside, by kind."""
+    import torch.distributed as dist
+    counts = {"all-to-all": 0, "all-gather": 0}
+    names = {"all_to_all_single": "all-to-all",
+             "all_gather_into_tensor": "all-gather",
+             "all_gather_single": "all-gather"}
+    saved = {n: getattr(dist, n) for n in names if hasattr(dist, n)}
+
+    def counted(fn, kind):
+        def call(out, x, *args, **kwargs):
+            counts[kind] += x.numel() * x.element_size()
+            return fn(out, x, *args, **kwargs)
+        return call
+    for n, fn in saved.items():
+        setattr(dist, n, counted(fn, names[n]))
+    try:
+        yield counts
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+def median_ms(torch, fns, iters: int = MESH_ITERS) -> list:
+    """The median ms of each call of ``fns``, CUDA events around each
+    call alone (enqueue included: the eager latency), the calls taking
+    turns in each of ``iters`` rounds after one warm-up round."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(iters):
+        for t, fn in zip(times, fns):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            t.append(start.elapsed_time(end))
+    return [float(np.median(t)) for t in times]
+
+
+def spmv_mesh_phase(torch, device, seed, programs) -> dict:
+    """The SpMV executor over a ``torch.distributed`` mesh on the card: a
+    world-size-1 NCCL group (a ``FileStore`` in a temporary directory) and
+    a ("model",) mesh over it; each program of :data:`MESH_CASES`
+    (``programs``: label -> (matrix, program), from the executor phases)
+    answers a vector and an (N, 8) block through
+    ``make_program_spmv_fn(prog, mesh)`` with ``pipeline`` on and off,
+    the launch counts zeroed just before and read just after.  Each
+    answer must equal the one-device executor's bitwise (the y shards,
+    and the y that ``gather_b`` gathers over the mesh) and be within the
+    |A|·|x|-scaled 2e-4 of ``csr_matvec``; the bytes each collective sent
+    must be the exchange's (S/W)·S·H·4·B (halo) or (S/W)·per·4·B
+    (all-gather) and the y gather's (S/W)·R·4·B.  Then the eager ms of a
+    call, mesh (pipelined and serial) against one device, medians of
+    :data:`MESH_ITERS`.  No fallback: a failed group, collective or check
+    fails the run."""
+    import torch.distributed as dist
+    from repro_torch.core import program as P
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.mesh import build_mesh, world_devices
+
+    rng = np.random.default_rng(seed)
+    cases = {}
+    for label in MESH_CASES:
+        A, prog = programs[label]
+        xs = [rng.standard_normal(A.ncols), rng.standard_normal((A.ncols, 8))]
+        xo = [x if prog.perm is None else P._apply_perm(x, prog.perm)
+              for x in xs]
+        cases[label] = (A, prog, xs, [torch.from_numpy(prog.x_to_device(
+            x.astype(np.float32))).to(device) for x in xo])
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    out = {"cases": {}}
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(backend, store=dist.FileStore(
+            os.path.join(d, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = build_mesh(("model",), (1,), world_devices(device))
+            check(mesh.distributed and dist.get_backend(
+                mesh.group(("model",))) == backend,
+                f"the ('model',) mesh over the {backend} world")
+            t0 = time.perf_counter()
+            runs = {(label, pipe): P.make_program_spmv_fn(
+                        cases[label][1], mesh, pipeline=pipe)
+                    for label in MESH_CASES for pipe in (True, False)}
+            torch.cuda.synchronize()
+            out["operands_s"] = time.perf_counter() - t0
+            # -- the main path: counts zeroed just before, read just after -
+            _lib.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = {}
+            for (label, pipe), run in runs.items():
+                prog, xd = cases[label][1], cases[label][3]
+                for b, x in zip((1, 8), xd):
+                    with sent_bytes() as sent:
+                        y_shards = run(x)
+                    with sent_bytes() as gathered:
+                        y = P.gather_b(prog, y_shards, mesh)
+                    got[label, pipe, b] = (y_shards, y, sent, gathered)
+            torch.cuda.synchronize()
+            out["requests_s"] = time.perf_counter() - t0
+            out["launches"] = launches = dict(_lib.launch_counts)
+            for name in SERVING_KERNELS:        # every executor kernel
+                check(launches[name] > 0,
+                      f"spmv_mesh: {name} was never launched")
+            for label in MESH_CASES:
+                out["cases"][label] = mesh_case(torch, label, cases[label],
+                                                runs, got, device)
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def mesh_case(torch, label, case, runs, got, device) -> dict:
+    """One :func:`spmv_mesh_phase` case's checks and times."""
+    from repro_torch.core import program as P
+
+    A, prog, xs, xd = case
+    ops = P._device_operands(prog)
+    S = prog.plan.num_shards
+    per = prog.x_layout.padded_length() // S
+    halo = "halo" in prog.plan.resolved_shard_exchanges()
+    rec = {"exchange": "all-to-all" if halo else "all-gather",
+           "shards": S, "halo_H": ops["halo_H"], "per": per,
+           "R": ops["R"], "bytes": {}, "ms": {}}
+    for pipe in (True, False):
+        one = P.make_program_spmv_fn(prog, device=device, pipeline=pipe)
+        for b, x in zip((1, 8), xd):
+            y_shards, y, sent, gathered = got[label, pipe, b]
+            want = one(x)
+            check(torch.equal(y_shards, want) and
+                  np.array_equal(y, P.gather_b(prog, want)),
+                  f"spmv_mesh/{label}: B = {b}, pipeline={pipe} differs "
+                  f"from the one-device executor")
+            each = S * ops["halo_H"] if halo else per
+            check(sent == {"all-to-all": S * each * 4 * b if halo else 0,
+                           "all-gather": 0 if halo else S * each * 4 * b}
+                  and gathered == {"all-to-all": 0,
+                                   "all-gather": S * ops["R"] * 4 * b},
+                  f"spmv_mesh/{label}: sent {sent}, gathered {gathered}")
+            rec["bytes"][f"B{b}"] = {"exchange": sent[rec["exchange"]],
+                                     "y_gather": gathered["all-gather"]}
+    rec["bitwise"] = True
+    rec["max_scaled_err"] = answers_error(
+        f"spmv_mesh/{label}", A, xs,
+        [got[label, True, b][1].astype(np.float64) for b in (1, 8)])
+    one = P.make_program_spmv_fn(prog, device=device)
+    for b, x in zip((1, 8), xd):
+        ms = median_ms(torch, [lambda: one(x), lambda: runs[label, True](x),
+                               lambda: runs[label, False](x)])
+        rec["ms"][f"B{b}"] = dict(one_device=ms[0], mesh=ms[1],
+                                  mesh_serial=ms[2])
+    return rec
+
+
 EXAMPLES_DIR = ROOT / "examples_torch"
 #: ``train_lm``'s steps here: its default, 200 (four checkpoints).
 EXAMPLE_TRAIN_STEPS = 200
@@ -2238,7 +2423,7 @@ def run_phases(torch, device, seed, artifact_dir) -> int:
 
     rng = np.random.default_rng(seed)
     results, totals, matrices = {}, {name: 0 for name in _lib.KERNELS}, {}
-    tenant_plans = {}
+    tenant_plans, programs = {}, {}
     for label, build, plans in phases(cop, choice.plan):
         # the serving phase's tenants: cop20k_A warm from the planner's
         # bundle, the others under their phase's (first) plan
@@ -2250,7 +2435,7 @@ def run_phases(torch, device, seed, artifact_dir) -> int:
         block = rng.standard_normal((A.ncols, 8))
         for plan_label, plan in plans:
             r = run_program(torch, plan_label, A, plan, singles, block,
-                            device)
+                            device, programs)
             r["matrix_s"] = gen_s
             results[plan_label] = r
             for name, count in r["launches"].items():
@@ -2288,6 +2473,13 @@ def run_phases(torch, device, seed, artifact_dir) -> int:
     sharded = lm_train_sharded_phase(torch, device, seed + 4, train["full"])
     sharded["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"lm_train_sharded": sharded}))
+    t0 = time.perf_counter()
+    mesh = spmv_mesh_phase(torch, device, seed + 5, programs)
+    mesh["phase_s"] = time.perf_counter() - t0
+    for name, count in mesh["launches"].items():
+        totals[name] += count
+    print(json.dumps({"spmv_mesh": mesh}))
+    del programs
     t0 = time.perf_counter()
     examples = examples_phase(torch, device, artifact_dir)
     examples["phase_s"] = time.perf_counter() - t0

@@ -11,18 +11,27 @@ Counterpart of ``repro.core.program``:
   split count) changed, sharing every other stage with the old program.
 * :func:`execute` runs it: ``backend="numpy"`` is the exact float64 host
   oracle, ``backend="device"`` the executor of
-  :func:`make_program_spmv_fn`, ``backend="emu"`` the Emu timeline probe
-  (:func:`probe_program`).
+  :func:`make_program_spmv_fn` on one device, ``backend="shard_map"``
+  the same executor over a mesh, ``backend="emu"`` the Emu timeline
+  probe (:func:`probe_program`).
 
-The device executor keeps all S shards on one device.  The exchange
-prologue becomes one index gather that builds each shard's
+The device executor runs in one of two forms.  Without a mesh (or on a
+local mesh of one device) it keeps all S shards on one device, and the
+exchange prologue is one index gather that builds each shard's
 ``[x_local ++ recv]`` buffer (or the one global vector of a uniform
-all-gather program); each kernel family is one launch over its shards'
-S-stacked operands; and, as in the reference, a local pass (rows that
-read only the shard's own x) and a remote pass (rows that wait for the
-exchange) are combined per row.  No kernel uses atomics, so the result is
-bitwise-deterministic: ``pipeline=True`` and ``False`` agree bitwise, and
-column b of an (N, B) call equals the per-vector call on ``x[:, b]``.
+all-gather program).  On a ``torch.distributed`` mesh
+(:mod:`repro_torch.launch.mesh`) each of the W ranks along the axis
+holds a block of S/W shards, and the exchange is a real collective, as
+the reference's ``shard_map`` executor's: one ``all_to_all_single`` of
+the packed halo when any shard reads a halo, one all-gather of the
+shards otherwise.  In both forms each kernel family is one launch over
+its shards' stacked operands, and, as in the reference, a local pass
+(rows that read only the shard's own x) and a remote pass (rows that
+wait for the exchange) are combined per row.  No kernel uses atomics and
+no shard's result depends on which shards share its launch, so the
+result is bitwise-deterministic: ``pipeline=True`` and ``False`` agree
+bitwise, column b of an (N, B) call equals the per-vector call on
+``x[:, b]``, and every world size gives the one-device executor's y.
 """
 from __future__ import annotations
 
@@ -681,6 +690,11 @@ def _device_operands(program: SpmvProgram) -> dict:
     the result.  Every array the reference builds is bitwise-equal to it;
     the kernels' range and length tables (``ovf_ptr``, ``piece_ptr``,
     ``tile_ptr``, ``ell_len``) are the port's own.
+
+    Every array is stacked over all S shards (first dimension S), also
+    on a rank of a mesh: as the reference builds its global operands
+    before ``shard_map`` shards them, each rank builds them whole on the
+    host and uploads only its block of shards.
     """
     cached = getattr(program, "_device_ops_cache", None)
     if cached is not None:
@@ -765,60 +779,195 @@ def _tile_rows_used(tile_ptr: np.ndarray, sids: np.ndarray) -> int:
     return int(rows[-1]) + 1 if rows.size else 0
 
 
-def make_program_spmv_fn(program: SpmvProgram, *, device="cuda",
+def _placement(program: SpmvProgram, mesh, axis: str, device):
+    """Where the executor runs: ``(device, group, block, W)``, the process
+    group over ``axis`` (None off a distributed mesh), this rank's
+    coordinate along it and the axis's size."""
+    if mesh is None:
+        return resolve_device("cuda" if device is None else device), \
+            None, 0, 1
+    if mesh.abstract:
+        raise ValueError("an abstract mesh has no devices to run on")
+    if axis not in mesh.axis_names:
+        raise ValueError(f"axis {axis!r} is not one of the mesh's axes "
+                         f"{mesh.axis_names}")
+    dev = mesh.local_device
+    if device is not None and torch.device(device).type != dev.type:
+        raise ValueError(f"device {device} is not the mesh's device {dev}")
+    if not mesh.distributed:
+        if mesh.size > 1:
+            raise ValueError(
+                f"a local mesh of {mesh.size} devices: start one process "
+                f"per device on a torch.distributed group (torchrun)")
+        return resolve_device(dev), None, 0, 1
+    import torch.distributed as dist
+    S, W = program.plan.num_shards, mesh.shape[axis]
+    if S % W:
+        raise ValueError(f"{S} shards do not split over {W} ranks along "
+                         f"{axis!r}: the ranks must divide the shards")
+    group = mesh.group((axis,))
+    want = "nccl" if dev.type == "cuda" else "gloo"
+    backend = dist.get_backend(group)
+    if backend != want:
+        raise ValueError(f"a {dev.type} executor needs a {want} group; the "
+                         f"mesh's {axis!r} group is {backend}")
+    return resolve_device(dev), group, mesh.coordinate(axis), W
+
+
+def _all_gather(out, x, group, async_op: bool = False):
+    import torch.distributed as dist
+    # all_gather_single is all_gather_into_tensor's newer name
+    return getattr(dist, "all_gather_single", dist.all_gather_into_tensor)(
+        out, x, group=group, async_op=async_op)
+
+
+def _index_exchange(program: SpmvProgram, ops: dict, dev):
+    """The one-device exchange: the remote pass's buffers by one index
+    gather from the flat layout-order x (:func:`_exchange_index`)."""
+    S = program.plan.num_shards
+    per = program.x_layout.padded_length() // S
+    gidx = torch.from_numpy(_exchange_index(program, ops)).to(dev)
+
+    def start(xb):
+        def finish():
+            flat = xb.permute(1, 0, 2).reshape(xb.shape[1], S * per)
+            return flat[:, gidx].permute(1, 0, 2).contiguous()  # (Sx, B, Lx)
+        return finish
+    return start
+
+
+def _halo_exchange(ops: dict, lo: int, hi: int, per: int, W: int, group,
+                   dev):
+    """The halo exchange of the shards [lo, hi) as one all-to-all.
+
+    Each rank packs, for every reader p of the S and each of its own
+    shards q, the rows ``send_idx[q, p]`` of q's ``x_local``, laid out by
+    the reader's rank; what comes back is each local reader's ``recv``,
+    ordered by global source shard and padded to H, so its buffer
+    ``[x_local ++ recv]`` is the one-device executor's, row for row."""
+    import torch.distributed as dist
+    n = hi - lo
+    send = ops["send_idx"][lo:hi].astype(np.int64)            # (n, S, H)
+    S, H = send.shape[1], send.shape[2]
+    pack = torch.from_numpy(np.ascontiguousarray(
+        (np.arange(n)[:, None, None] * per + send).transpose(1, 0, 2))) \
+        .to(dev)                                              # (S, n, H)
+
+    def start(xb):
+        B = xb.shape[1]
+        flat = xb.permute(1, 0, 2).reshape(B, n * per)
+        to_send = flat[:, pack].permute(1, 0, 2, 3).contiguous()  # (S,B,n,H)
+        recv = torch.empty_like(to_send)                  # (W * n, B, n, H)
+        work = dist.all_to_all_single(recv, to_send, group=group,
+                                      async_op=True)
+
+        def finish():
+            work.wait()
+            got = recv.view(W, n, B, n, H).permute(1, 2, 0, 3, 4)
+            return torch.cat([xb, got.reshape(n, B, S * H)], dim=2)
+        return finish
+    return start
+
+
+def _gather_exchange(kind: str, S: int, per: int, group):
+    """The uniform all-gather: every rank's (S/W, B, per) block gathered
+    into the (S, B, per) shards, then laid out as the one global vector
+    (a reshape for ``block``, the transpose for ``cyclic``)."""
+
+    def start(xb):
+        B = xb.shape[1]
+        xs = torch.empty((S, B, per), dtype=xb.dtype, device=xb.device)
+        work = _all_gather(xs, xb, group, async_op=True)
+
+        def finish():
+            work.wait()
+            g = xs.permute(1, 0, 2) if kind == "block" else \
+                xs.permute(1, 2, 0)
+            return g.reshape(1, B, S * per).contiguous()
+        return finish
+    return start
+
+
+def make_program_spmv_fn(program: SpmvProgram, mesh=None,
+                         axis: str = "model", *, device=None,
                          pipeline: bool = True, graphs: bool = False):
     """The device executor: returns ``run(x_shards) -> y_shards``.
 
     ``x_shards`` is (S, per) or batched (S, per, B) in layout order (numpy
-    or a tensor); ``y_shards`` is an (S, R[, B]) float32 tensor on
-    ``device`` (slice each shard to its true row count, or use
+    or a tensor); ``y_shards`` is an (S, R[, B]) float32 tensor on the
+    executor's device (slice each shard to its true row count, or use
     :func:`gather_b`).  Each call runs the local pass against ``x_local``
     and the remote pass against the exchange buffer, one launch per kernel
     family each, and keeps per row the pass that owns it.
-    ``pipeline=True`` issues the local pass before the exchange gather,
+    ``pipeline=True`` issues the local pass before the exchange completes,
     ``pipeline=False`` after it; the outputs are bitwise-equal.
 
-    ``graphs=True`` (CUDA only; it raises on another device) makes the
-    executor reusable at the card's own speed, as ``jax.jit`` makes the
-    reference's: the first call for each x shape, (S, per) or
-    (S, per, B), captures the call as one CUDA graph over a static x
-    buffer, and every call copies x in, replays the graph and returns a
-    copy of its output, bitwise the eager call's.  Calls from several
-    threads take turns on one lock; at most :data:`MAX_GRAPHS` shapes are
-    held, the least recently used dropped first.  ``run.graph_stats()``
-    lists each held shape's capture seconds (warm-up call included), the
-    device memory it holds (what its graph pool reserved during the
-    capture, plus the static x) and its replays; ``run.prime(shapes)``
-    captures shapes ahead of their first call (both are no-ops without
-    graphs).  Launch counts (``_lib.launch_counts``)
+    Without ``mesh`` (or on a local mesh of one device) the executor runs
+    on ``device`` (CUDA unless ``device="cpu"``) and holds all S shards.
+    On a distributed mesh (:mod:`repro_torch.launch.mesh`; every rank
+    calls this, and every call of ``run``) rank r of the W along ``axis``
+    holds the shards ``[r S/W, (r+1) S/W)`` on its own device: it uploads
+    only that block of every operand, ``run`` takes the global x_shards
+    and returns this rank's (S/W, R[, B]) block, and the exchange is one
+    collective on the axis's group (the halo's ``all_to_all_single``, or
+    the all-gather of the shards), issued asynchronously so that with
+    ``pipeline=True`` the local pass runs while it is in flight.  W must
+    divide S, and the group's backend must be the device's (NCCL for
+    CUDA, gloo for the CPU); a local mesh of more than one device raises.
+
+    ``graphs=True`` (CUDA only, one device; it raises on another device
+    and on a distributed mesh) makes the executor reusable at the card's
+    own speed, as ``jax.jit`` makes the reference's: the first call for
+    each x shape, (S, per) or (S, per, B), captures the call as one CUDA
+    graph over a static x buffer, and every call copies x in, replays the
+    graph and returns a copy of its output, bitwise the eager call's.
+    Calls from several threads take turns on one lock; at most
+    :data:`MAX_GRAPHS` shapes are held, the least recently used dropped
+    first.  ``run.graph_stats()`` lists each held shape's capture seconds
+    (warm-up call included), the device memory it holds (what its graph
+    pool reserved during the capture, plus the static x) and its replays;
+    ``run.prime(shapes)`` captures shapes ahead of their first call (both
+    are no-ops without graphs).  Launch counts (``_lib.launch_counts``)
     grow at the warm-up call and the capture, not at replays.
 
     ``run.operands`` (the device operand tensors), ``run.families``
-    (kernel -> int32 shard ids), ``run.rb_used`` (per pass, the block rows
-    the tile shards' tiles reach) and ``run.buffers(x_shards)`` (the local
-    and remote x buffers) let a caller replay single kernels.
+    (kernel -> int32 shard ids within the block), ``run.rb_used`` (per
+    pass, the block rows the tile shards' tiles reach), ``run.shards``
+    (the block's first and end shard) and ``run.buffers(x_shards)`` (the
+    local and remote x buffers) let a caller replay single kernels.
     """
-    dev = resolve_device(device)
-    if graphs and dev.type != "cuda":
-        raise ValueError(f"graphs=True replays CUDA graphs; device {dev} "
-                         f"has none (use graphs=False)")
+    dev, group, block, W = _placement(program, mesh, axis, device)
+    if graphs and (group is not None or dev.type != "cuda"):
+        where = "a distributed mesh's collectives are not captured" \
+            if group is not None else f"device {dev} has none"
+        raise ValueError(f"graphs=True replays one device's CUDA graphs; "
+                         f"{where} (use graphs=False)")
     ops = _device_operands(program)
     S, R = program.plan.num_shards, ops["R"]
     per = program.x_layout.padded_length() // S
-    T = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+    n = S // W
+    lo, hi = block * n, (block + 1) * n
+    kid = ops["kid"][lo:hi]
+    T = {k: torch.from_numpy(np.ascontiguousarray(v[lo:hi])).to(dev)
          for k, v in ops.items() if isinstance(v, np.ndarray)}
     families = {name: torch.from_numpy(
-                    np.flatnonzero(ops["kid"] == i).astype(np.int32)).to(dev)
+                    np.flatnonzero(kid == i).astype(np.int32)).to(dev)
                 for i, name in enumerate(PROGRAM_KERNELS)
-                if (ops["kid"] == i).any()}
-    gidx = torch.from_numpy(_exchange_index(program, ops)).to(dev)
-    row_remote = T["row_remote"][:, None, :]             # (S, 1, R)
-    tile_sids = np.flatnonzero(ops["kid"] == PROGRAM_KERNELS.index("tile"))
-    rb_used = {pre: _tile_rows_used(ops[pre + "tile_ptr"], tile_sids)
+                if (kid == i).any()}
+    if group is None:
+        start_exchange = _index_exchange(program, ops, dev)
+    elif any(e == "halo" for e in program.plan.resolved_shard_exchanges()):
+        start_exchange = _halo_exchange(ops, lo, hi, per, W, group, dev)
+    else:
+        start_exchange = _gather_exchange(program.x_layout.kind, S, per,
+                                          group)
+    row_remote = T["row_remote"][:, None, :]             # (n, 1, R)
+    tile_sids = np.flatnonzero(kid == PROGRAM_KERNELS.index("tile"))
+    rb_used = {pre: _tile_rows_used(ops[pre + "tile_ptr"][lo:hi], tile_sids)
                for pre in ("loc_", "rem_")}
 
     def kernel_pass(pre: str, xbuf, num_splits: int):
-        y = torch.empty((S, xbuf.shape[1], R), dtype=torch.float32,
+        y = torch.empty((n, xbuf.shape[1], R), dtype=torch.float32,
                         device=dev)
         for name, sids in families.items():
             if name in ("ell", "hyb"):        # ell shards: empty ovf_ptr
@@ -843,22 +992,19 @@ def make_program_spmv_fn(program: SpmvProgram, *, device="cuda",
         return y
 
     def local_buffer(x_shards):
-        x = torch.as_tensor(x_shards, dtype=torch.float32, device=dev)
-        _check_shards(x, S, per)
+        _check_shards(x_shards, S, per)
+        x = torch.as_tensor(x_shards[lo:hi], dtype=torch.float32, device=dev)
         xb = x if x.dim() == 3 else x[..., None]
-        return xb.permute(0, 2, 1).contiguous(), x.dim() == 3   # (S, B, per)
-
-    def exchange(xb):
-        flat = xb.permute(1, 0, 2).reshape(xb.shape[1], S * per)
-        return flat[:, gidx].permute(1, 0, 2).contiguous()      # (Sx, B, Lx)
+        return xb.permute(0, 2, 1).contiguous(), x.dim() == 3   # (n, B, per)
 
     def run(x_shards):
         xb, batched = local_buffer(x_shards)
+        finish = start_exchange(xb)
         if pipeline:
             y_loc = kernel_pass("loc_", xb, ops["NS_loc"])
-            xg = exchange(xb)
+            xg = finish()
         else:
-            xg = exchange(xb)
+            xg = finish()
             y_loc = kernel_pass("loc_", xb, ops["NS_loc"])
         y_rem = kernel_pass("rem_", xg, ops["NS_rem"])
         y = torch.where(row_remote, y_rem, y_loc).permute(0, 2, 1)
@@ -866,7 +1012,7 @@ def make_program_spmv_fn(program: SpmvProgram, *, device="cuda",
 
     def buffers(x_shards):
         xb, _ = local_buffer(x_shards)
-        return xb, exchange(xb)
+        return xb, start_exchange(xb)()
 
     if graphs:
         run = _graphed(run, dev, S, per)
@@ -874,6 +1020,9 @@ def make_program_spmv_fn(program: SpmvProgram, *, device="cuda",
         run.prime = lambda shapes: None
         run.graph_stats = lambda: []
     run.program = program
+    run.mesh = mesh if group is not None else None   # what gather_b needs
+    run.axis = axis
+    run.shards = (lo, hi)
     run.rows_out = R
     run.operands = T
     run.families = families
@@ -884,7 +1033,7 @@ def make_program_spmv_fn(program: SpmvProgram, *, device="cuda",
 
 
 def _check_shards(x, S: int, per: int) -> None:
-    if tuple(x.shape[:2]) != (S, per) or x.dim() not in (2, 3):
+    if tuple(x.shape[:2]) != (S, per) or len(x.shape) not in (2, 3):
         raise ValueError(f"x_shards must be ({S}, {per}[, B]), got "
                          f"{tuple(x.shape)}")
 
@@ -968,8 +1117,20 @@ def _graphed(eager, dev, S: int, per: int):
     return run
 
 
-def gather_b(program: SpmvProgram, y_shards) -> np.ndarray:
-    """(S, rows_pad[, B]) device output -> global b in the caller's order."""
+def gather_b(program: SpmvProgram, y_shards, mesh=None,
+             axis: str = "model") -> np.ndarray:
+    """(S, rows_pad[, B]) device output -> global b in the caller's order.
+
+    On a distributed ``mesh``, ``y_shards`` is this rank's block of
+    shards (what the executor over that mesh returns) and the blocks are
+    gathered first, with one all-gather on the group over ``axis``: a
+    collective, so every rank calls it, and every rank gets the whole
+    b."""
+    if mesh is not None and mesh.distributed:
+        part = torch.as_tensor(y_shards).contiguous()
+        y_shards = part.new_empty((program.plan.num_shards,)
+                                  + tuple(part.shape[1:]))
+        _all_gather(y_shards, part, mesh.group((axis,)))
     y = y_shards.cpu().numpy() if torch.is_tensor(y_shards) \
         else np.asarray(y_shards)
     out = np.zeros((program.matrix.nrows,) + y.shape[2:], dtype=y.dtype)
@@ -981,14 +1142,16 @@ def gather_b(program: SpmvProgram, y_shards) -> np.ndarray:
 def device_spmv(run, x: np.ndarray) -> np.ndarray:
     """y = A @ x through ``run``, an executor of
     :func:`make_program_spmv_fn`: ``x`` (N,) or (N, B) in the caller's
-    order in, float32 numpy (M,) or (M, B) in the caller's order out."""
+    order in, float32 numpy (M,) or (M, B) in the caller's order out.
+    Over a distributed mesh every rank calls it and gets the whole y."""
     program = run.program
     x = np.asarray(x)
     _check_x(program, x)
     xp = x.astype(np.float32)
     if program.perm is not None:
         xp = _apply_perm(xp, program.perm)
-    return gather_b(program, run(program.x_to_device(xp)))
+    return gather_b(program, run(program.x_to_device(xp)), run.mesh,
+                    run.axis)
 
 
 def probe_program(program: SpmvProgram, *, emu: EmuConfig | None = None,
@@ -1002,7 +1165,8 @@ def probe_program(program: SpmvProgram, *, emu: EmuConfig | None = None,
 
 
 def execute(program: SpmvProgram, x: np.ndarray | None = None, *,
-            backend: str = "numpy", device="cuda", pipeline: bool = True,
+            backend: str = "numpy", device="cuda", mesh=None,
+            axis: str = "model", pipeline: bool = True,
             emu: EmuConfig | None = None, engine: str = "vectorized"):
     """Execute a lowered program; returns y in the caller's order, (M,) or
     (M, B).
@@ -1010,6 +1174,9 @@ def execute(program: SpmvProgram, x: np.ndarray | None = None, *,
     * ``backend="numpy"``: the exact float64 host oracle.
     * ``backend="device"``: the executor of :func:`make_program_spmv_fn`
       on ``device`` (CUDA unless ``device="cpu"``), float32.
+    * ``backend="shard_map"``: the same executor over ``mesh`` along
+      ``axis``, as the reference's entry point of that name; on a
+      distributed mesh every rank calls it and every rank gets y.
     * ``backend="emu"``: ignores ``x`` and returns the
       :class:`~repro_torch.core.emu.EmuResult` of :func:`probe_program`
       (``emu`` and ``engine`` go to it).
@@ -1023,5 +1190,12 @@ def execute(program: SpmvProgram, x: np.ndarray | None = None, *,
     if backend == "device":
         return device_spmv(make_program_spmv_fn(program, device=device,
                                                 pipeline=pipeline), x)
+    if backend == "shard_map":
+        if mesh is None:
+            raise ValueError("backend='shard_map' needs a mesh "
+                             "(repro_torch.launch.mesh); backend='device' "
+                             "runs on one device")
+        return device_spmv(make_program_spmv_fn(program, mesh, axis,
+                                                pipeline=pipeline), x)
     raise ValueError(f"unknown executor backend {backend!r}; expected "
-                     f"'numpy', 'device' or 'emu'")
+                     f"'numpy', 'device', 'shard_map' or 'emu'")

@@ -9,10 +9,13 @@ from the program's legacy stacked-slab views), and the pre-IR aliases
 
 The deprecated shims ``make_spmv_fn``, ``make_seg_spmv_fn`` and
 ``make_halo_spmv_fn`` keep their old call signatures over
-:func:`repro_torch.core.program.make_program_spmv_fn`: each takes
-``device=`` (CUDA unless ``device="cpu"``) where the reference takes a
-mesh, warns once, and re-binds the exchange as the reference does
-(all-gather for the first two, halo for the third).
+:func:`repro_torch.core.program.make_program_spmv_fn`: each takes the
+reference's positional ``mesh`` and ``axis`` (a
+:mod:`repro_torch.launch.mesh` mesh; over a distributed one each rank's
+function returns its block of shards) or, without a mesh, ``device=``
+(CUDA unless ``device="cpu"``), warns once, and re-binds the exchange as
+the reference does (all-gather for the first two, halo for the
+third).
 """
 from __future__ import annotations
 
@@ -167,7 +170,7 @@ def _rebound(dist, exchange: str):
         dist.plan, exchange=exchange, shard_exchanges=None))
 
 
-def make_spmv_fn(dist, *, device="cuda"):
+def make_spmv_fn(dist, mesh=None, axis: str = "model", *, device=None):
     """Deprecated shim over
     :func:`repro_torch.core.program.make_program_spmv_fn` with the old
     ``f(data, cols, x_shards) -> y_shards`` signature; the slab arguments
@@ -176,7 +179,8 @@ def make_spmv_fn(dist, *, device="cuda"):
     _warn_deprecated("make_spmv_fn",
                      "repro_torch.core.program.make_program_spmv_fn")
     from .program import make_program_spmv_fn
-    inner = make_program_spmv_fn(_rebound(dist, "allgather"), device=device)
+    inner = make_program_spmv_fn(_rebound(dist, "allgather"), mesh, axis,
+                                 device=device)
 
     def fn(data, cols, x_shards):
         del data, cols
@@ -184,7 +188,8 @@ def make_spmv_fn(dist, *, device="cuda"):
     return fn
 
 
-def make_seg_spmv_fn(dist, *, device="cuda"):
+def make_seg_spmv_fn(dist, mesh=None, axis: str = "model", *,
+                     device=None):
     """Deprecated shim over
     :func:`repro_torch.core.program.make_program_spmv_fn` for uniform-seg
     programs (old ``f(vals, cols, rows, pieces, x_shards)`` signature,
@@ -194,7 +199,8 @@ def make_seg_spmv_fn(dist, *, device="cuda"):
     if any(st.kernel != "seg" for st in dist.stages):
         raise ValueError("build_distributed was not run with plan.kernel='seg'")
     from .program import make_program_spmv_fn
-    inner = make_program_spmv_fn(_rebound(dist, "allgather"), device=device)
+    inner = make_program_spmv_fn(_rebound(dist, "allgather"), mesh, axis,
+                                 device=device)
     rows_pad = int(dist.rows_per_shard.max())
 
     def fn(vals, cols, rows, pieces, x_shards):
@@ -265,7 +271,8 @@ def build_halo(dist) -> HaloProgram:
                        comm_elems_per_shard=S * H)
 
 
-def make_halo_spmv_fn(dist, halo: HaloProgram, *, device="cuda"):
+def make_halo_spmv_fn(dist, halo: HaloProgram, mesh=None,
+                      axis: str = "model", *, device=None):
     """Deprecated shim over
     :func:`repro_torch.core.program.make_program_spmv_fn` (old
     ``f(data, cols_remap, send_idx, x_shards)`` signature).  The plan's
@@ -274,7 +281,8 @@ def make_halo_spmv_fn(dist, halo: HaloProgram, *, device="cuda"):
     _warn_deprecated("make_halo_spmv_fn",
                      "repro_torch.core.program.make_program_spmv_fn")
     from .program import make_program_spmv_fn
-    inner = make_program_spmv_fn(_rebound(dist, "halo"), device=device)
+    inner = make_program_spmv_fn(_rebound(dist, "halo"), mesh, axis,
+                                 device=device)
 
     def fn(data, cols_remap, send_idx, x_shards):
         del data, cols_remap, send_idx

@@ -666,6 +666,36 @@ def test_graph_replay_equals_eager(device, name):
                                rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("name", sorted(PLANS))
+def test_mesh_executor_on_nccl_equals_one_device(device, name, tmp_path):
+    """The executor over a world-size-1 NCCL mesh (the exchange and the y
+    gather as collectives of a group of one) is bitwise the one-device
+    executor, a vector and an (N, 3) block, pipelined or not."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import build_mesh, world_devices
+    A = _plan_matrix(name)
+    prog = P.lower(A, SpmvPlan(**PLANS[name]))
+    rng = np.random.default_rng(11)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = build_mesh(("model",), (1,), world_devices(device))
+        for pipeline in (True, False):
+            one = P.make_program_spmv_fn(prog, device=device,
+                                         pipeline=pipeline)
+            run = P.make_program_spmv_fn(prog, mesh, pipeline=pipeline)
+            for shape in ((A.ncols,), (A.ncols, 3)):
+                x = rng.standard_normal(shape)
+                xs = _on_card(prog, x, device)
+                assert torch.equal(run(xs), one(xs))
+                np.testing.assert_array_equal(
+                    P.execute(prog, x, backend="shard_map", mesh=mesh,
+                              pipeline=pipeline),
+                    P.device_spmv(one, x))
+    finally:
+        dist.destroy_process_group()
+
+
 def test_graph_replay_serves_each_thread_its_answer(device):
     """Two threads replaying one executor (with a short switch interval)
     each get the answers to their own x."""

@@ -382,3 +382,148 @@ def all_cases(rank, items):
            "resume": resume_case, "launcher": launcher_case,
            "count": count_case}
     return [run[kind](rank, case) for kind, case in items]
+
+
+# --------------------------------------------------------------------------
+# SpMV on the mesh (test_torch_mesh_spmv.py)
+# --------------------------------------------------------------------------
+
+def spmv_matrix(spec):
+    """The port's generator for ``(name, scale)``."""
+    from repro_torch.data.matrices import make_matrix
+    name, scale = spec
+    return make_matrix(name, scale=scale)
+
+
+def spmv_x(n: int, B, seed: int):
+    """The seeded x of a case: (n,) for ``B`` None, else (n, B)."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal(n if B is None else (n, B))
+
+
+@contextlib.contextmanager
+def counting_sends():
+    """The input bytes (what this rank sends) of every all-to-all and
+    all-gather, by kind."""
+    import torch.distributed as dist
+    counts = {"all-to-all": 0, "all-gather": 0}
+    names = {"all_to_all_single": "all-to-all",
+             "all_gather_into_tensor": "all-gather",
+             "all_gather_single": "all-gather"}
+    saved = {n: getattr(dist, n) for n in names if hasattr(dist, n)}
+
+    def counted(fn, kind):
+        def call(out, x, *args, **kwargs):
+            counts[kind] += x.numel() * x.element_size()
+            return fn(out, x, *args, **kwargs)
+        return call
+    for n, fn in saved.items():
+        setattr(dist, n, counted(fn, names[n]))
+    try:
+        yield counts
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+def _spmv_program(case):
+    from repro_torch.core import program as P
+    from repro_torch.core.spmv import SpmvPlan
+    A = spmv_matrix(case["matrix"])
+    return A, P.lower(A, SpmvPlan(**case["plan"]))
+
+
+def spmv_ref_case(mesh, case):
+    """``execute(..., backend="shard_map")`` on the world's mesh."""
+    from repro_torch.core import program as P
+    A, prog = _spmv_program(case)
+    return P.execute(prog, spmv_x(A.ncols, case["B"], case["seed"]),
+                     backend="shard_map", mesh=mesh)
+
+
+def spmv_exec_case(mesh, case):
+    """The executor at B = 1 and 3, pipeline on and off: this rank's
+    y block, the gathered y, the bytes each call's exchange and the y
+    gather sent, the operands' first dimensions and the block."""
+    from repro_torch.core import program as P
+    A, prog = _spmv_program(case)
+    out = {}
+    for B in (None, 3):
+        x = spmv_x(A.ncols, B, case["seed"])
+        xp = x if prog.perm is None else P._apply_perm(x, prog.perm)
+        xs = prog.x_to_device(xp.astype(np.float32))
+        for pipeline in (True, False):
+            run = P.make_program_spmv_fn(prog, mesh, pipeline=pipeline)
+            with counting_sends() as sent:
+                block = run(xs)
+            with counting_sends() as gathered:
+                y = P.gather_b(prog, block, mesh)
+            out[(B, pipeline)] = dict(
+                block=block.numpy(), y=y, sent=dict(sent),
+                gathered=dict(gathered), shards=run.shards,
+                operand_rows={k: int(t.shape[0])
+                              for k, t in run.operands.items()})
+    return out
+
+
+def spmv_shim_case(mesh, case):
+    """The three legacy shims with the reference's positional mesh: the
+    gathered y of each."""
+    import warnings
+    from repro_torch.core import program as P
+    from repro_torch.core import spmv as S
+    A, prog = _spmv_program(case)
+    x = spmv_x(A.ncols, case["B"], case["seed"])
+    xs = prog.x_to_device(x.astype(np.float32))
+    halo = S.build_halo(prog)
+    out = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        out["make_spmv_fn"] = S.make_spmv_fn(prog, mesh)(
+            prog.data, prog.cols, xs)
+        out["make_halo_spmv_fn"] = S.make_halo_spmv_fn(prog, halo, mesh)(
+            prog.data, halo.cols_remap, halo.send_idx, xs)
+        if prog.seg_vals is not None:
+            out["make_seg_spmv_fn"] = S.make_seg_spmv_fn(prog, mesh,
+                                                         "model")(
+                prog.seg_vals, prog.seg_cols, prog.seg_rows,
+                prog.seg_pieces, xs)
+    return {k: P.gather_b(prog, v, mesh) for k, v in out.items()}
+
+
+def spmv_error_case(mesh, case):
+    """The ``ValueError`` message each misuse raises (None if it ran)."""
+    from repro_torch.core import program as P
+    from repro_torch.core.spmv import SpmvPlan
+    A = spmv_matrix(case["matrix"])
+    W = mesh.shape["model"]
+    cuda = dataclasses.replace(mesh, devices=(torch.device("cuda", 0),) * W)
+    calls = {
+        "indivisible": lambda: P.make_program_spmv_fn(
+            P.lower(A, SpmvPlan(num_shards=W + 1, kernel="seg")), mesh),
+        "cuda_on_gloo": lambda: P.make_program_spmv_fn(
+            P.lower(A, SpmvPlan(num_shards=W, kernel="seg")), cuda),
+        "graphs": lambda: P.make_program_spmv_fn(
+            P.lower(A, SpmvPlan(num_shards=W, kernel="seg")), mesh,
+            graphs=True),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def spmv_cases(rank, items):
+    """Each (kind, case) of ``items`` on one ("model",) mesh over the
+    world."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import build_mesh, world_devices
+    mesh = build_mesh(("model",), (dist.get_world_size(),),
+                      world_devices(torch.device("cpu")))
+    run = {"ref": spmv_ref_case, "exec": spmv_exec_case,
+           "shim": spmv_shim_case, "errors": spmv_error_case}
+    return [run[kind](mesh, case) for kind, case in items]
