@@ -25,7 +25,11 @@ scripts of ``examples_torch/``:
   bitwise as ``lower`` of that plan does; a program saved with
   ``save_program`` and read back with ``load_program`` must answer on
   the card bitwise as the original.  Both pass the |A|·|x|-scaled
-  check below.  Prints one ``{"planner": ...}`` line of host seconds.
+  check below.  Then Fig. 7's load-balance measures at 8 nodelets under
+  block layouts (``mem_instr_cv``, ``inbound_cv``, ``hotspot_share``,
+  migrations; ``row`` and ``nonzero``, and ``nonzero`` after a
+  ``random`` reordering) must keep the reference test's orderings.
+  Prints one ``{"planner": ...}`` line of host seconds and those counts.
   The bundle stays for the serving phase;
 * ``cop20k_A``: the same matrix under the autotuner's choice (so the
   main path runs host CSR -> ``autotune`` -> ``lower`` -> the kernels)
@@ -576,7 +580,8 @@ def planner_phase(torch, A, device, seed, bundle) -> tuple:
     bitwise as ``lower`` of that plan does; and a program saved to
     ``bundle`` and reloaded must answer on the card bitwise as the
     original (the serving phase warm-starts from that bundle).  Returns
-    the choice and the phase's summary (host seconds)."""
+    the choice and the phase's summary (host seconds, and the traffic
+    measures of :func:`traffic_summary`)."""
     from repro_torch.core import _emu_cext, artifacts, program as P
     from repro_torch.core.plan import autotune
     from repro_torch.core.spmv import SpmvPlan
@@ -645,7 +650,42 @@ def planner_phase(torch, A, device, seed, bundle) -> tuple:
         out[f"{label}_max_scaled_err"] = answers_error(
             f"planner/{label}", A, xs,
             [P.gather_b(got, y).astype(np.float64) for y in ys])
+    out["traffic"] = timed("traffic_s", lambda: traffic_summary(A))
     return choice, out
+
+
+def traffic_summary(A, shards: int = 8) -> dict:
+    """Fig. 7's load-balance measures of ``A`` on ``shards`` nodelets under
+    block layouts: the ``row`` and ``nonzero`` splits, and ``nonzero``
+    after a ``random`` reordering.  Checks the orderings of the
+    reference's ``TestTraffic``: the nonzero split's ``mem_instr_cv``
+    below the row split's, and the random order's ``inbound_cv`` below
+    0.3 times the unreordered one's, at the cost of more migrations."""
+    from repro_torch.core.layout import make_layout
+    from repro_torch.core.migration import count_migrations
+    from repro_torch.core.partition import make_partition
+    from repro_torch.core.reorder import reorder
+
+    xl = make_layout("block", A.ncols, shards)
+    bl = make_layout("block", A.nrows, shards)
+    out = {}
+    for label, M, strategy in (("row", A, "row"), ("nonzero", A, "nonzero"),
+                               ("nonzero_random", reorder(A, "random"),
+                                "nonzero")):
+        rep = count_migrations(M, make_partition(M, shards, strategy), xl, bl)
+        out[label] = {"mem_instr_cv": rep.mem_instr_cv,
+                      "inbound_cv": rep.inbound_cv,
+                      "hotspot_share": rep.hotspot_share,
+                      "migrations": int(rep.migrations)}
+    row, nnz, rnd = out["row"], out["nonzero"], out["nonzero_random"]
+    out["orderings_hold"] = bool(
+        nnz["mem_instr_cv"] < row["mem_instr_cv"]
+        and rnd["inbound_cv"] < 0.3 * nnz["inbound_cv"]
+        and rnd["migrations"] > nnz["migrations"])
+    check(out["orderings_hold"],
+          f"planner: the traffic measures break the reference's orderings: "
+          f"{out}")
+    return out
 
 
 def run_program(torch, label, A, plan, singles, block, device,

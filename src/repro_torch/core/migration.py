@@ -31,6 +31,21 @@ class TrafficReport:
     nnz_per_nodelet: np.ndarray     # (P,) work assigned to each nodelet
 
     @property
+    def mem_instr_cv(self) -> float:
+        """Coefficient of variation of the memory instructions per nodelet
+        (the paper's Fig. 7 load-balance measure)."""
+        m = self.mem_instr_per_nodelet
+        mu = m.mean()
+        return float(m.std() / mu) if mu else 0.0
+
+    @property
+    def inbound_cv(self) -> float:
+        """Coefficient of variation of the x loads each nodelet serves."""
+        m = self.inbound_x_loads
+        mu = m.mean()
+        return float(m.std() / mu) if mu else 0.0
+
+    @property
     def hotspot_share(self) -> float:
         """Fraction of all x loads served by the single hottest nodelet."""
         tot = self.inbound_x_loads.sum()

@@ -42,6 +42,10 @@ class Partition:
         return np.diff(self.starts)
 
     def nnz_per_shard(self, csr: CSRMatrix) -> np.ndarray:
+        return self.starts_nnz(csr)
+
+    def starts_nnz(self, csr: CSRMatrix) -> np.ndarray:
+        """(P,) non-zeros of each shard's row range."""
         return np.diff(csr.row_ptr[self.starts])
 
     def owner_of_rows(self, M: int) -> np.ndarray:
@@ -117,10 +121,13 @@ def nnz_chunk_starts(nnz: int, chunk: int) -> np.ndarray:
     return starts
 
 
-def make_partition(csr: CSRMatrix, num_shards: int, strategy: str) -> Partition:
+def make_partition(csr: CSRMatrix, num_shards: int, strategy: str,
+                   nnz_weight: np.ndarray | None = None) -> Partition:
+    """The partition of ``strategy``; ``nnz_weight`` reaches
+    :func:`partition_nonzeros` and is ignored under ``"row"``."""
     if strategy == "row":
         return partition_rows(csr, num_shards)
     if strategy in ("nonzero", "nnz"):
-        return partition_nonzeros(csr, num_shards)
+        return partition_nonzeros(csr, num_shards, nnz_weight=nnz_weight)
     raise ValueError(f"unknown work-distribution strategy: {strategy!r}; "
                      f"expected one of {DISTRIBUTIONS}")

@@ -226,8 +226,8 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like: Tree, *,
-            device="cuda", shardings: Tree = None) -> tuple[Tree, int]:
+def restore(ckpt_dir: str, step: int, like: Tree, shardings: Tree = None,
+            *, device="cuda") -> tuple[Tree, int]:
     """Restore into the structure of ``like`` ({"params": ..., "opt": ...},
     tensors or ``meta`` tensors), each leaf cast to its ``like`` leaf's
     dtype and placed on ``device``; with ``shardings`` (the same

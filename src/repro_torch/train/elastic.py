@@ -52,7 +52,6 @@ def resume(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, ckpt_dir: str,
                      "opt": adamw.AdamWState(
                          step=NamedSharding(new_mesh, P()), m=p_shard,
                          v=p_shard)}
-    state, step = ckpt.restore(ckpt_dir, step, abstract,
-                               device=new_mesh.local_device,
-                               shardings=shardings)
+    state, step = ckpt.restore(ckpt_dir, step, abstract, shardings,
+                               device=new_mesh.local_device)
     return state["params"], state["opt"], step

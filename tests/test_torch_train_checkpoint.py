@@ -78,6 +78,31 @@ class TestCheckpoint:
         state, _ = ckpt.restore(str(tmp / "a"), 7, abstract, device="cpu")
         assert_trees_equal(state, like)
 
+    def test_restore_takes_shardings_by_position(self, setup):
+        """``shardings`` is ``restore``'s fourth positional parameter, as
+        in the reference (whose ``elastic.resume`` passes it so): ``None``
+        there restores bitwise as the keyword call, and a sharding tree
+        binds to ``shardings`` with ``device`` left at its default."""
+        import inspect
+        cfg, _, tmp = setup
+        params, opt = stepped_state(cfg)
+        ckpt.save(str(tmp / "pos"), params, opt, 4, blocking=True)
+        like = {"params": params, "opt": opt}
+        by_kw, step_kw = ckpt.restore(str(tmp / "pos"), 4, like,
+                                      shardings=None, device="cpu")
+        by_pos, step_pos = ckpt.restore(str(tmp / "pos"), 4, like, None,
+                                        device="cpu")
+        assert step_pos == step_kw == 4
+        assert_trees_equal(by_pos, by_kw)
+        assert_trees_equal(by_pos, like)
+        shardings = tp.tree_map(lambda p: object(), like)
+        bound = inspect.signature(ckpt.restore).bind(
+            str(tmp / "pos"), 4, like, shardings)
+        assert bound.arguments["shardings"] is shardings
+        assert "device" not in bound.arguments
+        assert list(inspect.signature(rckpt.restore).parameters) == \
+            list(inspect.signature(ckpt.restore).parameters)[:4]
+
     def test_latest_step(self, setup):
         cfg, _, tmp = setup
         params, opt = fresh(cfg)
