@@ -39,11 +39,11 @@ import collections
 import contextlib
 import dataclasses
 import threading
-import time
 
 import numpy as np
 import torch
 
+from .. import tracing
 from .emu import EmuConfig, EmuResult, run_spmv
 from .layout import VectorLayout, make_layout
 from .migration import TrafficReport, count_migrations, remote_access_matrix
@@ -267,7 +267,8 @@ def program_from_arrays(*, shape, values, col_index, row_ptr, starts, plan,
     a dict of its fields) and the reordering ``perm`` (or None).
 
     This is how a program lowered elsewhere (the JAX reference) is carried
-    over: its arrays in, the same stages out.
+    over: its arrays in, the same stages out.  Records the spans
+    ``lower.stages`` and ``lower.emu_accounting``.
     """
     if isinstance(plan, dict):
         plan = SpmvPlan(**plan)
@@ -278,37 +279,48 @@ def program_from_arrays(*, shape, values, col_index, row_ptr, starts, plan,
     strategy = "row" if plan.distribution == "row" else "nonzero"
     part = Partition(strategy, plan.num_shards,
                      np.asarray(starts, dtype=np.int64))
-    x_layout = make_layout(plan.layout, A.ncols, plan.num_shards)
-    b_layout = make_layout(plan.layout, A.nrows, plan.num_shards)
-    kernels = plan.resolved_shard_kernels()
-    split_counts = plan.resolved_split_counts()
-    stages = tuple(_build_stage(A, part, p, kernels[p], split_counts[p])
-                   for p in range(plan.num_shards))
+    with tracing.span("lower.stages"):
+        x_layout = make_layout(plan.layout, A.ncols, plan.num_shards)
+        b_layout = make_layout(plan.layout, A.nrows, plan.num_shards)
+        kernels = plan.resolved_shard_kernels()
+        split_counts = plan.resolved_split_counts()
+        stages = tuple(_build_stage(A, part, p, kernels[p], split_counts[p])
+                       for p in range(plan.num_shards))
+    with tracing.span("lower.emu_accounting"):
+        traffic = count_migrations(A, part, x_layout, b_layout)
+        shard_traffic = remote_access_matrix(A, part, x_layout)
     return SpmvProgram(
         plan=plan, matrix=A, partition=part, x_layout=x_layout,
         b_layout=b_layout,
         rows_per_shard=part.rows_per_shard().astype(np.int64),
         row_offset=part.starts[:-1].astype(np.int64),
-        traffic=count_migrations(A, part, x_layout, b_layout),
-        shard_traffic=remote_access_matrix(A, part, x_layout),
+        traffic=traffic, shard_traffic=shard_traffic,
         stages=stages, perm=None if perm is None else np.asarray(perm))
 
 
 def lower(csr: CSRMatrix, plan: SpmvPlan) -> SpmvProgram:
-    """Lower (matrix, plan) to a per-shard-staged :class:`SpmvProgram`."""
+    """Lower (matrix, plan) to a per-shard-staged :class:`SpmvProgram`.
+
+    Records the span ``lower`` over ``lower.reorder`` (entered whatever
+    the reordering), ``lower.stages`` (the partition, the layouts and the
+    stages) and ``lower.emu_accounting`` (:mod:`repro_torch.tracing`)."""
     if csr.nrows != csr.ncols:
         raise ValueError("paper applies symmetric reorderings to square "
                          "matrices")
-    perm = None
-    A = csr
-    if plan.reordering != "none":
-        perm = reordering_permutation(csr, plan.reordering, seed=plan.seed,
-                                      parts=plan.num_shards)
-        A = csr.permuted(perm, perm)
-    part = make_partition(A, plan.num_shards, plan.distribution)
-    return program_from_arrays(shape=A.shape, values=A.values,
-                               col_index=A.col_index, row_ptr=A.row_ptr,
-                               starts=part.starts, plan=plan, perm=perm)
+    with tracing.span("lower"):
+        perm = None
+        A = csr
+        with tracing.span("lower.reorder"):
+            if plan.reordering != "none":
+                perm = reordering_permutation(csr, plan.reordering,
+                                              seed=plan.seed,
+                                              parts=plan.num_shards)
+                A = csr.permuted(perm, perm)
+        with tracing.span("lower.stages"):
+            part = make_partition(A, plan.num_shards, plan.distribution)
+        return program_from_arrays(shape=A.shape, values=A.values,
+                                   col_index=A.col_index, row_ptr=A.row_ptr,
+                                   starts=part.starts, plan=plan, perm=perm)
 
 
 #: Plan fields that force a full :func:`lower` when they change.  The
@@ -821,12 +833,25 @@ def _all_gather(out, x, group, async_op: bool = False):
         out, x, group=group, async_op=async_op)
 
 
+@contextlib.contextmanager
+def _upload(dev):
+    """The span ``executor.upload`` around host-to-device copies, ended
+    when they are done, so that none spills into a later span."""
+    with tracing.span("executor.upload"):
+        yield
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+
+
 def _index_exchange(program: SpmvProgram, ops: dict, dev):
     """The one-device exchange: the remote pass's buffers by one index
     gather from the flat layout-order x (:func:`_exchange_index`)."""
     S = program.plan.num_shards
     per = program.x_layout.padded_length() // S
-    gidx = torch.from_numpy(_exchange_index(program, ops)).to(dev)
+    with tracing.span("executor.operands"):
+        index = _exchange_index(program, ops)
+    with _upload(dev):
+        gidx = torch.from_numpy(index).to(dev)
 
     def start(xb):
         def finish():
@@ -849,9 +874,11 @@ def _halo_exchange(ops: dict, lo: int, hi: int, per: int, W: int, group,
     n = hi - lo
     send = ops["send_idx"][lo:hi].astype(np.int64)            # (n, S, H)
     S, H = send.shape[1], send.shape[2]
-    pack = torch.from_numpy(np.ascontiguousarray(
-        (np.arange(n)[:, None, None] * per + send).transpose(1, 0, 2))) \
-        .to(dev)                                              # (S, n, H)
+    with tracing.span("executor.operands"):
+        index = np.ascontiguousarray(
+            (np.arange(n)[:, None, None] * per + send).transpose(1, 0, 2))
+    with _upload(dev):
+        pack = torch.from_numpy(index).to(dev)               # (S, n, H)
 
     def start(xb):
         B = xb.shape[1]
@@ -935,25 +962,41 @@ def make_program_spmv_fn(program: SpmvProgram, mesh=None,
     pass, the block rows the tile shards' tiles reach), ``run.shards``
     (the block's first and end shard) and ``run.buffers(x_shards)`` (the
     local and remote x buffers) let a caller replay single kernels.
+
+    The build records the span ``executor.build`` over
+    ``executor.operands`` (the host operands and the exchange's index)
+    and ``executor.upload`` (their copies to the device), and each
+    capture ``executor.capture`` (:mod:`repro_torch.tracing`).  While
+    ``tracing.recording()`` is true, each call records the span
+    ``spmv.call`` and counts ``spmv.calls`` and, where it found all
+    earlier work of this executor done (on the CPU: always),
+    ``spmv.starved``.
     """
+    with tracing.span("executor.build"):
+        return _build_executor(program, mesh, axis, device, pipeline, graphs)
+
+
+def _build_executor(program, mesh, axis, device, pipeline, graphs):
     dev, group, block, W = _placement(program, mesh, axis, device)
     if graphs and (group is not None or dev.type != "cuda"):
         where = "a distributed mesh's collectives are not captured" \
             if group is not None else f"device {dev} has none"
         raise ValueError(f"graphs=True replays one device's CUDA graphs; "
                          f"{where} (use graphs=False)")
-    ops = _device_operands(program)
+    with tracing.span("executor.operands"):
+        ops = _device_operands(program)
     S, R = program.plan.num_shards, ops["R"]
     per = program.x_layout.padded_length() // S
     n = S // W
     lo, hi = block * n, (block + 1) * n
     kid = ops["kid"][lo:hi]
-    T = {k: torch.from_numpy(np.ascontiguousarray(v[lo:hi])).to(dev)
-         for k, v in ops.items() if isinstance(v, np.ndarray)}
-    families = {name: torch.from_numpy(
-                    np.flatnonzero(kid == i).astype(np.int32)).to(dev)
-                for i, name in enumerate(PROGRAM_KERNELS)
-                if (kid == i).any()}
+    with _upload(dev):
+        T = {k: torch.from_numpy(np.ascontiguousarray(v[lo:hi])).to(dev)
+             for k, v in ops.items() if isinstance(v, np.ndarray)}
+        families = {name: torch.from_numpy(
+                        np.flatnonzero(kid == i).astype(np.int32)).to(dev)
+                    for i, name in enumerate(PROGRAM_KERNELS)
+                    if (kid == i).any()}
     if group is None:
         start_exchange = _index_exchange(program, ops, dev)
     elif any(e == "halo" for e in program.plan.resolved_shard_exchanges()):
@@ -997,7 +1040,7 @@ def make_program_spmv_fn(program: SpmvProgram, mesh=None,
         xb = x if x.dim() == 3 else x[..., None]
         return xb.permute(0, 2, 1).contiguous(), x.dim() == 3   # (n, B, per)
 
-    def run(x_shards):
+    def eager(x_shards):
         xb, batched = local_buffer(x_shards)
         finish = start_exchange(xb)
         if pipeline:
@@ -1015,8 +1058,9 @@ def make_program_spmv_fn(program: SpmvProgram, mesh=None,
         return xb, start_exchange(xb)()
 
     if graphs:
-        run = _graphed(run, dev, S, per)
+        run = _graphed(eager, dev, S, per)
     else:                                     # nothing to capture
+        run = _traced(eager, dev)
         run.prime = lambda shapes: None
         run.graph_stats = lambda: []
     run.program = program
@@ -1044,6 +1088,31 @@ def _check_shards(x, S: int, per: int) -> None:
 MAX_GRAPHS = 16
 
 
+def _traced(eager, dev):
+    """``eager`` with the per-call span and counters.  On CUDA a call
+    starved the device where the event recorded at the end of this
+    executor's last recorded call has completed."""
+    state = {"done": None}
+
+    def run(x_shards):
+        if not tracing.recording():
+            return eager(x_shards)
+        with tracing.call_span("spmv.call"):
+            done = state["done"]
+            _count_call(done is None or done.query())
+            y = eager(x_shards)
+            if dev.type == "cuda":
+                state["done"] = torch.cuda.current_stream(dev).record_event()
+        return y
+    return run
+
+
+def _count_call(starved: bool) -> None:
+    tracing.count("spmv.calls")
+    if starved:
+        tracing.count("spmv.starved")
+
+
 def _graphed(eager, dev, S: int, per: int):
     """``eager`` behind a cache of CUDA graphs, one per x shape."""
     lock = threading.Lock()
@@ -1059,24 +1128,24 @@ def _graphed(eager, dev, S: int, per: int):
             state["stream"] = torch.cuda.Stream(dev)
         side = state["stream"]
         x = torch.zeros(shape, dtype=torch.float32, device=dev)
-        t0 = time.perf_counter()
-        side.wait_stream(torch.cuda.current_stream(dev))
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
-            eager(x)
-            reserved = torch.cuda.memory_reserved(dev)
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                y = eager(x)
-            except BaseException:
-                with contextlib.suppress(RuntimeError):  # keep the cause
-                    graph.capture_end()
-                raise
-            graph.capture_end()
-            reserved = torch.cuda.memory_reserved(dev) - reserved
-        torch.cuda.current_stream(dev).wait_stream(side)
+        with tracing.span("executor.capture") as sp:
+            side.wait_stream(torch.cuda.current_stream(dev))
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(side):
+                eager(x)
+                reserved = torch.cuda.memory_reserved(dev)
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    y = eager(x)
+                except BaseException:
+                    with contextlib.suppress(RuntimeError):  # keep the cause
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
+                reserved = torch.cuda.memory_reserved(dev) - reserved
+            torch.cuda.current_stream(dev).wait_stream(side)
         held[shape] = (graph, x, y, dict(
-            shape=list(shape), capture_s=time.perf_counter() - t0,
+            shape=list(shape), capture_s=sp.seconds,
             bytes=int(reserved) + x.numel() * x.element_size(), replays=0))
         while len(held) > MAX_GRAPHS:
             held.popitem(last=False)
@@ -1089,10 +1158,18 @@ def _graphed(eager, dev, S: int, per: int):
         return capture(shape)
 
     def run(x_shards):
+        if not tracing.recording():
+            return replay(x_shards, False)
+        with tracing.call_span("spmv.call"):
+            return replay(x_shards, True)
+
+    def replay(x_shards, traced: bool):
         x = torch.as_tensor(x_shards, dtype=torch.float32)
         _check_shards(x, S, per)
         stream = torch.cuda.current_stream(dev)
         with lock:
+            if traced:                # before this call enqueues anything
+                _count_call(state["done"] is None or state["done"].query())
             graph, x_static, y_static, stats = entry(tuple(x.shape))
             if state["done"] is not None:       # a caller on another stream
                 stream.wait_event(state["done"])

@@ -18,8 +18,9 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
 from pathlib import Path
+
+from .. import tracing
 
 __all__ = ["KERNELS", "launch_counts", "reset_launch_counts", "lib",
            "build", "call", "check", "x_stride"]
@@ -80,16 +81,16 @@ def _digest() -> str:
 
 def build() -> Path:
     """Compile the library if this source hash has not been built yet;
-    returns its path.  Records the build time and the ``ptxas`` report in
-    :data:`build_info`."""
+    returns its path.  Records the build time (the span ``kernels.build``)
+    and the ``ptxas`` report in :data:`build_info`."""
     out = BUILD_ROOT / _digest() / "librepro_torch_kernels.so"
     if out.exists():
         build_info.setdefault("seconds", 0.0)
         return out
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_ROOT) as tmp:
+    with tracing.span("kernels.build") as sp, \
+            tempfile.TemporaryDirectory(dir=BUILD_ROOT) as tmp:
         procs = []
         for src in SOURCES:
             obj = os.path.join(tmp, src + ".o")
@@ -111,8 +112,7 @@ def build() -> Path:
                                f"{link.stderr}")
         out.parent.mkdir(parents=True, exist_ok=True)
         os.replace(so, out)            # atomic: concurrent builds agree
-    build_info.update(seconds=time.perf_counter() - t0,
-                      ptxas="\n".join(logs))
+    build_info.update(seconds=sp.seconds, ptxas="\n".join(logs))
     return out
 
 

@@ -666,6 +666,41 @@ def test_graph_replay_equals_eager(device, name):
                                rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("graphs", [True, False])
+def test_call_spans_and_starvation_on_the_card(device, graphs):
+    """With recording on, every call adds to ``spmv.call`` and
+    ``spmv.calls``; a call made after the device has drained counts as
+    starved, and one made behind a queue of unfinished calls does not.
+    The capture's span is ``graph_stats()``'s ``capture_s``."""
+    from repro_torch import tracing
+    A = _plan_matrix("split")
+    prog = P.lower(A, SpmvPlan(**PLANS["split"]))
+    run = P.make_program_spmv_fn(prog, device=device, graphs=graphs)
+    xs = _on_card(prog, np.ones(A.ncols), device)
+    run(xs)
+    if graphs:
+        assert run.graph_stats()[0]["capture_s"] == \
+            tracing.last("executor.capture").seconds
+    tracing.enable()
+    try:
+        torch.cuda.synchronize(device)
+        run(xs)                                   # the device had drained
+        assert tracing.counter("spmv.starved") == 1
+        torch.cuda._sleep(200_000_000)            # keep the queue busy
+        for _ in range(8):                        # only the first of these
+            run(xs)                               # may see the call before
+        assert tracing.counter("spmv.starved") <= 2
+        starved = tracing.counter("spmv.starved")
+        torch.cuda.synchronize(device)
+        run(xs)
+        assert tracing.counter("spmv.starved") == starved + 1
+        calls, seconds = tracing.total("spmv.call")
+        assert calls == tracing.counter("spmv.calls") == 10 and seconds > 0
+    finally:
+        tracing.disable()
+    torch.cuda.synchronize(device)
+
+
 @pytest.mark.parametrize("name", sorted(PLANS))
 def test_mesh_executor_on_nccl_equals_one_device(device, name, tmp_path):
     """The executor over a world-size-1 NCCL mesh (the exchange and the y
