@@ -59,8 +59,8 @@ scripts of ``examples_torch/``:
   the sizes above: cop20k_A warm-started from the planner's bundle
   (``warm_start`` checked: no second autotune), blocked_band under its
   mixed plan and powerlaw_tail under ``split``, so requests reach
-  ``ell_spmv``, ``seg_psum``, the fix-up, ``split_combine`` and
-  ``tile_contrib`` through graph-replayed executors.  8 client threads
+  ``ell_spmv``, ``seg_piece_sums``, ``seg_psum``, the fix-up,
+  ``split_combine`` and ``tile_contrib`` through graph-replayed executors.  8 client threads
   send 32 single vectors each, round-robin over the tenants (x from a
   seeded generator), then one (N, 8) block per tenant.  Every answer
   must be within the |A|·|x|-scaled 2e-4 of a float64 product (held to
@@ -196,6 +196,7 @@ REPLACES = {
     "ell_spmv": "src/repro/kernels/spmv_ell.py:45",
     "seg_psum": "src/repro/kernels/spmv_seg.py:42",
     "seg_fixup": "src/repro/kernels/ops.py:158",
+    "seg_piece_sums": "src/repro/kernels/spmv_seg.py:42",
     "split_combine": "src/repro/kernels/spmv_split.py:77",
     "tile_contrib": "src/repro/kernels/spmv_tile.py:91",
     "split_psum": "src/repro/kernels/spmv_split.py:43",
@@ -205,16 +206,17 @@ SOURCE = {
     "ell_spmv": "src/repro_torch/csrc/spmv_ell.cu",
     "seg_psum": "src/repro_torch/csrc/spmv_seg.cu",
     "seg_fixup": "src/repro_torch/csrc/spmv_seg.cu",
+    "seg_piece_sums": "src/repro_torch/csrc/spmv_seg.cu",
     "split_combine": "src/repro_torch/csrc/spmv_split.cu",
     "tile_contrib": "src/repro_torch/csrc/spmv_tile.cu",
     "split_psum": "src/repro_torch/csrc/spmv_split.cu",
     "tile_walk_spmv": "src/repro_torch/csrc/spmv_tile.cu",
 }
 #: The phase whose numbers stand for each kernel in the summary line.
-HEADLINE = {"ell_spmv": "cop20k_A/ell", "seg_psum": "cop20k_A/seg",
+HEADLINE = {"ell_spmv": "cop20k_A/ell", "seg_psum": "powerlaw_tail",
             "seg_fixup": "cop20k_A/seg", "split_combine": "powerlaw_tail",
             "tile_contrib": "blocked_band", "split_psum": "api/split64",
-            "tile_walk_spmv": "api/tile"}
+            "tile_walk_spmv": "api/tile", "seg_piece_sums": "cop20k_A/seg"}
 #: The phases of the general walks (tile shapes the fast walks do not
 #: take), listed under their kernel in the summary line.
 GENERAL_WALKS = {"tile_walk_spmv": ("api/tile16x64", "api/tile32x32",
@@ -371,10 +373,19 @@ def family_replays(torch, run, pre, x, fam, sids):
             + 4 * n * tile_ptr.shape[1] + x_bytes(gathered) + ybytes + 4 * n,
             2 * B * sum(n_tiles) * tile_elems)
         return recs
-    # seg and split: stage 1 is seg_psum, then the carry fix-up
     v, c, pcs, ptr = (T[pre + k] for k in ("seg_vals", "seg_cols",
                                            "seg_pieces", "piece_ptr"))
     C, L = v.shape[1], v.shape[2]
+    if fam == "seg":        # the piece sums, then the fix-up over them
+        r = piece_sums_replay(torch, v, c, x, pcs, T[pre + "seg_chunk_ptr"],
+                              sids)
+        rec("seg_piece_sums", r["kernel"], r["plain"], r["scale"],
+            r["bytes"], r["ops"], by_sid=False)
+        r = piece_fixup_replay(torch, r["kernel"](), ptr, sids, S)
+        rec("seg_fixup", r["kernel"], r["plain"], None, r["bytes"], r["ops"],
+            exact=True, plain_timed=r["plain_timed"])
+        return recs
+    # split: stage 1 is seg_psum, then the carry fix-up
 
     def psum_out():
         return torch.empty((n, B, C, L), device=x.device)
@@ -388,13 +399,11 @@ def family_replays(torch, run, pre, x, fam, sids):
         + n * B * C * L * 4 + 4 * n,
         2 * n * B * C * L, by_sid=False)
     psum = spmv_seg.seg_psum(v, c, x, sids)
-    ns = 1 if fam == "seg" else run.num_splits[pre]
-    ids = sids if fam == "seg" else torch.arange(n, dtype=torch.int32,
-                                                 device=x.device)
+    ns = run.num_splits[pre]
+    ids = torch.arange(n, dtype=torch.int32, device=x.device)
 
     def fix_out(device=x.device):
-        shape = (S, B, R) if fam == "seg" else (n, B, ns, R)
-        return torch.empty(shape, device=device)
+        return torch.empty((n, B, ns, R), device=device)
 
     n_pieces = real(ptr)
     read_at = []                       # psum[chunk, hi] and psum[chunk, lo-1]
@@ -413,18 +422,85 @@ def family_replays(torch, run, pre, x, fam, sids):
         None, 4 * B * distinct(torch, read_at, shared=False)
         + 20 * sum(n_pieces) + 4 * n * ptr.shape[1] + 8 * n
         + n * B * ns * R * 4, 2 * B * sum(n_pieces), exact=True,
-        by_sid=fam == "seg",
+        by_sid=False,
         plain_timed=lambda: spmv_seg.seg_fixup_plain(psum, pcs, ptr, sids,
                                                      ids, fix_out()))
-    if fam == "split":
-        part = spmv_seg.seg_fixup(psum, pcs, ptr, sids, ids, num_splits=ns,
-                                  out=fix_out())
-        rec("split_combine",
-            lambda: spmv_split.split_combine(part, sids, out=y_out()),
-            lambda: spmv_split.split_combine_plain(part, sids, y_out()),
-            None, nbytes(part) + ybytes + 4 * n, n * B * ns * R, exact=True,
-            library=lambda: part.sum(dim=2))
+    part = spmv_seg.seg_fixup(psum, pcs, ptr, sids, ids, num_splits=ns,
+                              out=fix_out())
+    rec("split_combine",
+        lambda: spmv_split.split_combine(part, sids, out=y_out()),
+        lambda: spmv_split.split_combine_plain(part, sids, y_out()),
+        None, nbytes(part) + ybytes + 4 * n, n * B * ns * R, exact=True,
+        library=lambda: part.sum(dim=2))
     return recs
+
+
+def piece_sums_replay(torch, vals, cols, x, pcs, cptr, sids) -> dict:
+    """``seg_piece_sums`` on one launch's operands: the kernel (into one
+    zeroed buffer, which every timed call rewrites at the same pieces),
+    its plain version, the scale (|A|.|x| summed up to each piece's hi:
+    the size of the two prefix sums a difference subtracts), the bytes
+    and the operations.  Bytes: vals and cols of the chunks with pieces
+    (the kernel loads nothing of the others), each distinct x position
+    they gather, ``chunk_ptr``, 8 bytes (lo, hi) of each piece's record
+    and its difference, and ``sids``."""
+    from repro_torch.kernels import spmv_seg
+
+    n, B = sids.numel(), x.shape[1]
+    C, L, Pp = vals.shape[1], vals.shape[2], pcs.shape[1]
+    shards = sids.long().tolist()
+    live = [cptr[s, 1:] > cptr[s, :-1] for s in shards]
+    n_live = sum(int(m.sum()) for m in live)
+    n_pieces = [int(cptr[s, C]) for s in shards]
+
+    def zeros():
+        return torch.zeros((n, B, Pp), device=x.device)
+
+    buf = zeros()
+
+    def scale():
+        ps = spmv_seg.seg_psum_plain(vals.abs(), cols, x.abs(), sids,
+                                     torch.empty((n, B, C, L),
+                                                 device=x.device))
+        out = zeros()
+        for k, (s, m) in enumerate(zip(shards, n_pieces)):
+            out[k, :, :m] = ps[k][:, pcs[s, :m, 0].long(),
+                                  pcs[s, :m, 2].long()]
+        return out
+    gathered = [cols[s][m].reshape(-1) for s, m in zip(shards, live)]
+    return dict(
+        kernel=lambda: spmv_seg.seg_piece_sums(vals, cols, x, pcs, cptr,
+                                               sids, out=buf),
+        plain=lambda: spmv_seg.seg_piece_sums_plain(vals, cols, x, pcs, cptr,
+                                                    sids, zeros()),
+        scale=scale,
+        bytes=8 * L * n_live
+        + 4 * B * distinct(torch, gathered, shared=x.shape[0] == 1)
+        + 4 * n * (C + 1) + (8 + 4 * B) * sum(n_pieces) + 4 * n,
+        ops=2 * B * L * n_live)
+
+
+def piece_fixup_replay(torch, d, ptr, sids, S) -> dict:
+    """The seg family's fix-up over ``d`` (counted as ``seg_fixup``): the
+    kernel into y (S, B, R), its plain version on CPU copies (CUDA's
+    ``index_add_`` has no fixed order), and the bytes: each real piece's
+    difference, ``piece_ptr``, ``sids`` and the listed shards' y."""
+    from repro_torch.kernels import spmv_seg
+
+    n, B, _ = d.shape
+    R = ptr.shape[1] - 1
+    m = sum(int(ptr[s, R]) for s in sids.long().tolist())
+    cpu = [t.cpu() for t in (d, ptr, sids)]
+
+    def out(device=d.device):
+        return torch.empty((S, B, R), device=device)
+    return dict(
+        kernel=lambda: spmv_seg.seg_piece_fixup(d, ptr, sids, out=out()),
+        plain=lambda: spmv_seg.seg_piece_fixup_plain(*cpu, out("cpu")),
+        plain_timed=lambda: spmv_seg.seg_piece_fixup_plain(d, ptr, sids,
+                                                           out()),
+        bytes=4 * B * m + 4 * n * (R + 1) + 4 * n + 4 * n * B * R,
+        ops=B * m)
 
 
 def csr_tensor(torch, crow, cols, vals, shape, device):
@@ -502,8 +578,8 @@ def measure_kernels(torch, prog, fn, xs, x_prog, device) -> dict:
     per-kernel sums for this program."""
     stats = measure_records(torch, replays(torch, fn, xs))
     # library yardsticks: one PyTorch call computing the same function
-    lib_of = {"ell_spmv": ("ell", "hyb"), "seg_psum": ("seg", "split"),
-              "tile_contrib": ("tile",)}
+    lib_of = {"ell_spmv": ("ell", "hyb"), "seg_psum": ("split",),
+              "seg_piece_sums": ("seg",), "tile_contrib": ("tile",)}
     x_col = torch.from_numpy(x_prog.astype(np.float32)).to(device)[:, None]
     for name, fams in lib_of.items():
         if name not in stats:
@@ -767,8 +843,9 @@ def run_program(torch, label, A, plan, singles, block, device,
 
 #: The kernel wrappers the per-format API reaches, by their names in
 #: ``repro_torch.kernels.ops``.
-API_WRAPPERS = ("_ell_kernel", "seg_psum", "seg_fixup", "split_psum",
-                "split_combine", "tile_walk_spmv", "tile_contrib")
+API_WRAPPERS = ("_ell_kernel", "seg_psum", "seg_fixup", "seg_piece_sums",
+                "seg_piece_fixup", "split_psum", "split_combine",
+                "tile_walk_spmv", "tile_contrib")
 
 
 @contextlib.contextmanager
@@ -882,6 +959,11 @@ def api_record(torch, label, wrapper, a, kw) -> dict:
             bytes=4 * B * distinct(torch, [read_at], shared=False) + 20 * m
             + 4 * (R + 1) + 8 + 4 * B * ns * R,
             ops=2 * B * m)
+    elif wrapper == "seg_piece_sums":
+        rec.update(name=wrapper, **piece_sums_replay(torch, *a))
+    elif wrapper == "seg_piece_fixup":
+        rec.update(name="seg_fixup", exact=True, scale=None,
+                   **piece_fixup_replay(torch, *a, kw["out"].shape[0]))
     elif wrapper == "split_combine":
         part, sids = a
         _, B, ns, R = part.shape
@@ -1041,8 +1123,8 @@ def run_api_call(torch, label, A, call, singles, block, device) -> dict:
         api_record(torch, label, *c) for c in calls]))
     A_card = csr_tensor(torch, A.row_ptr, A.col_index, A.values, A.shape,
                         device)
-    for name in ("ell_spmv", "seg_psum", "split_psum", "tile_walk_spmv",
-                 "tile_contrib"):
+    for name in ("ell_spmv", "seg_psum", "seg_piece_sums", "split_psum",
+                 "tile_walk_spmv", "tile_contrib"):
         if name in kernels:
             kernels[name]["library_ms"] = cuda_ms(
                 torch, lambda: torch.sparse.mm(A_card, xs[0][:, None]))
@@ -1060,7 +1142,7 @@ def run_api_call(torch, label, A, call, singles, block, device) -> dict:
 
 #: The kernels the serving phase must reach through the router.
 SERVING_KERNELS = ("ell_spmv", "seg_psum", "seg_fixup", "split_combine",
-                   "tile_contrib")
+                   "tile_contrib", "seg_piece_sums")
 CLIENTS, REQUESTS_PER_CLIENT = 8, 32
 
 

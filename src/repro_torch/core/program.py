@@ -581,7 +581,9 @@ def _stack_stages(stages, R: int, remap, row_nnz) -> dict:
     added for the kernels, each built with searchsorted over a shard's
     real, row-sorted entries: ``ovf_ptr`` (S, R+1) over the overflow rows,
     ``piece_ptr`` (S, R+1) over the piece rows and ``tile_ptr`` (S, Rb+1)
-    over the tiles' block rows.  A fourth, ``ell_len`` (S, R), counts each
+    over the tiles' block rows; ``seg_chunk_ptr`` (S, C+1) gives a seg
+    shard's pieces by chunk (row order is chunk order there; 0 for other
+    families), for the seg family's scan.  ``ell_len`` (S, R) counts each
     row's real ELL slots: ``min(row nnz, W)`` of the stage's own ELL width
     from ``row_nnz`` (each stage's row lengths, rows it does not own 0),
     HYB rows spilling past W; 0 for padding rows and other families.
@@ -619,6 +621,7 @@ def _stack_stages(stages, R: int, remap, row_nnz) -> dict:
     seg_pieces = np.zeros((S, Pp, 5), dtype=np.int32)
     seg_pieces[:, :, 1] = 1           # (lo=1, hi=0, row=0, split=0) -> zero
     piece_ptr = np.zeros((S, R + 1), dtype=np.int32)
+    seg_chunk_ptr = np.zeros((S, C + 1), dtype=np.int32)
     tiles = [st.tile for st in stages if st.tile is not None]
     t_bm = tiles[0].bm if tiles else ELL_SUBLANE
     t_bn = tiles[0].bn if tiles else ELL_LANE
@@ -655,6 +658,7 @@ def _stack_stages(stages, R: int, remap, row_nnz) -> dict:
             seg_pieces[p, :n, 2] = s.piece_hi
             seg_pieces[p, :n, 3] = s.piece_row
             piece_ptr[p] = _row_ranges(s.piece_row, R)
+            seg_chunk_ptr[p] = _row_ranges(s.piece_chunk, C)
         if st.split is not None:
             s = st.split
             ns, Cs = s.num_splits, s.chunks_per_split
@@ -687,6 +691,7 @@ def _stack_stages(stages, R: int, remap, row_nnz) -> dict:
                 ell_len=ell_len,
                 seg_vals=seg_vals, seg_cols=seg_cols, seg_rows=seg_rows,
                 seg_pieces=seg_pieces, piece_ptr=piece_ptr,
+                seg_chunk_ptr=seg_chunk_ptr,
                 tile_data=tile_data, tile_xcol=tile_xcol,
                 tile_brow=tile_brow, tile_ptr=tile_ptr, NS=NS)
 
@@ -701,7 +706,7 @@ def _device_operands(program: SpmvProgram) -> dict:
     uniform all-gather).  ``row_remote`` picks, per row, which pass owns
     the result.  Every array the reference builds is bitwise-equal to it;
     the kernels' range and length tables (``ovf_ptr``, ``piece_ptr``,
-    ``tile_ptr``, ``ell_len``) are the port's own.
+    ``seg_chunk_ptr``, ``tile_ptr``, ``ell_len``) are the port's own.
 
     Every array is stacked over all S shards (first dimension S), also
     on a rank of a mesh: as the reference builds its global operands
@@ -1022,7 +1027,8 @@ def _build_executor(program, mesh, axis, device, pipeline, graphs):
             elif name == "seg":
                 kops.seg_stacked(T[pre + "seg_vals"], T[pre + "seg_cols"],
                                  T[pre + "seg_pieces"], T[pre + "piece_ptr"],
-                                 xbuf, sids, out=y)
+                                 xbuf, sids,
+                                 chunk_ptr=T[pre + "seg_chunk_ptr"], out=y)
             elif name == "split":
                 kops.split_stacked(T[pre + "seg_vals"], T[pre + "seg_cols"],
                                    T[pre + "seg_pieces"],

@@ -12,9 +12,10 @@
 //     and no kernel uses atomics, so every result is bitwise-deterministic
 //     and batched columns equal per-vector calls.  split_combine takes one
 //     column per grid.y; ell_spmv, tile_contrib, tile_walk_spmv, seg_psum
-//     (and split_psum, which is seg_psum's scan) and seg_fixup keep
-//     RHS_CHUNK columns' sums per thread (grid.y = chunk), so one load of
-//     a matrix entry or piece record feeds every column of a chunk.
+//     (and split_psum, which is seg_psum's scan), seg_piece_sums and
+//     seg_fixup keep RHS_CHUNK columns' sums per thread (grid.y = chunk),
+//     so one load of a matrix entry or piece record feeds every column of
+//     a chunk.
 // Every launcher returns cudaGetLastError() so a refused launch is seen.
 #pragma once
 #include <cuda_runtime.h>

@@ -8,6 +8,16 @@
 // seg_psum:  psum[k, b, c, l] = sum_{j <= l} vals[s, c, j] * x[s, b, cols[s, c, j]]
 // seg_fixup: out[o, b, t, r] = sum over r's pieces of split t of
 //            psum[k, b, chunk, hi] - psum[k, b, chunk, lo - 1]
+// seg_piece_sums: d[k, b, p] = psum[k, b, chunk, hi] - psum[k, b, chunk, lo - 1]
+//            for each piece p of shard s, psum never stored
+// seg_fixup over d (DIFFS): y[s, b, r] = sum over r's pieces of d[k, b, p]
+//
+// The seg family runs seg_piece_sums, then seg_fixup over d; the split
+// family (pieces split-ordered within a row, so not in chunk order) keeps
+// seg_psum -> seg_fixup -> split_combine.  seg_piece_sums replaces seg_psum
+// and the fix-up's psum gathers on the seg path, and is bitwise that pair:
+// the same loads, the same scan, the same one subtraction a piece, and the
+// fix-up's in-order sums of the same differences.
 //
 // What bounds them on the H100: bytes.  The scan reads 8 bytes of
 // vals + cols and gathers 4 bytes of x per element and writes the 4-byte
@@ -38,8 +48,9 @@
 // [piece_ptr[r], piece_ptr[r+1]) of the row-ordered piece table,
 // split-ordered within the row, so the ranges come from one coalesced
 // read of piece_ptr; nothing is searched, and a row without pieces costs
-// that read and its zero stores.  A warp owns 32 consecutive rows of a
-// shard:
+// that read and its zero stores.  Over seg_piece_sums' d a row's
+// differences are contiguous too, d[ptr[r]] .. d[ptr[r+1] - 1], and no
+// record is read.  A warp owns 32 consecutive rows of a shard:
 //   * short rows (at most LONG_ROW pieces): the lane walks its own row.
 //     It loads all its records, then all their psum pairs (loads that
 //     wait on nothing but the record), then adds the differences in piece
@@ -65,6 +76,25 @@
 // each (row, split): the in-order sum seg_fixup_plain takes with
 // index_add_, bitwise.  Padded piece rows [0, 1, 0, 0, 0] (lo > hi) add
 // nothing.  Record loads feed up to RHS_CHUNK columns, as in seg_psum.
+//
+// seg_piece_sums: the seg family's running sums stay out of device memory.
+// seg_psum writes 4 bytes a stored element (320 MB a call on an 80 M-nnz
+// matrix; 8x that at B = 8) of which the fix-up reads two a piece back.
+// This kernel walks a chunk as seg_psum does (a warp a chunk, the same
+// loads, gathers and scan_step) and stores one float a piece and column,
+// its difference.  The chunk's pieces are the contiguous range
+// chunk_ptr[c] .. chunk_ptr[c+1] of the shard's row-ordered table (row
+// order is chunk order in a seg shard); a chunk without pieces (padding)
+// loads and stores nothing.  What bounds it on the H100: not the 8 bytes
+// of vals + cols an element but the x gathers (4 bytes an element a
+// column, scattered): seg_psum takes 7.5x its B = 1 time at B = 8 for the
+// same vals and cols, and its psum stores, which no warp waits on, cost
+// little.  So the sums never touch shared memory: a stage of 2 KB a warp
+// shrank the L1 that the gathers hit and made the scan 11-66% slower than
+// seg_psum on a banded matrix; in registers, with psum[hi] fetched by
+// shuffles, it is 11% faster there at B = 1 and level at B = 8, and up to
+// 10% slower on a power-law graph, whose many short pieces cost shuffles
+// of their own.
 #include "common.cuh"
 
 namespace {
@@ -78,6 +108,68 @@ constexpr int ROUND = LONG_LOADS * WARP;  // a long row's pieces a round
 constexpr int STAGE = ROUND + 4;        // a column's row in the stage
 constexpr int STEP = 4 * WARP;          // elements a warp scans per step
 constexpr int STEPS_AHEAD = 4;          // steps whose loads go out at once
+constexpr int GROUP = STEP * STEPS_AHEAD;  // elements a warp's loads cover
+
+// One group of STEPS_AHEAD steps of a chunk's elements (`src` its first,
+// element q0 of the group): each lane's 16-byte loads of vals and cols,
+// all of them before the first is used.  Past L: zeros (L % 4 == 0, so a
+// lane's 4 elements are all in or all out).
+__device__ __forceinline__ void load_group(const float* vals, const int* cols,
+                                           long long src, int q0, int L,
+                                           float4 (&v)[STEPS_AHEAD],
+                                           int4 (&ci)[STEPS_AHEAD]) {
+  const int lane = threadIdx.x % WARP;
+#pragma unroll
+  for (int u = 0; u < STEPS_AHEAD; ++u) {
+    const int e = q0 + u * STEP + 4 * lane;
+    v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    ci[u] = make_int4(0, 0, 0, 0);
+    if (e < L) {
+      v[u] = *reinterpret_cast<const float4*>(vals + src + e);
+      ci[u] = *reinterpret_cast<const int4*>(cols + src + e);
+    }
+  }
+}
+
+// The group's gathers of one column's x (`xb`), all before the first scan.
+__device__ __forceinline__ void gather_group(const float* xb,
+                                             const int4 (&ci)[STEPS_AHEAD],
+                                             int q0, int L,
+                                             float4 (&xg)[STEPS_AHEAD]) {
+  const int lane = threadIdx.x % WARP;
+#pragma unroll
+  for (int u = 0; u < STEPS_AHEAD; ++u) {
+    xg[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + u * STEP + 4 * lane < L)
+      xg[u] = make_float4(xb[ci[u].x], xb[ci[u].y], xb[ci[u].z], xb[ci[u].w]);
+  }
+}
+
+// One step's inclusive prefix sums of one column: the lane's 4 products
+// added serially, a shuffle scan over the 32 lane totals, and the carry of
+// the steps before (lane 31's last sum, which `carry` becomes).  The whole
+// warp calls it.
+__device__ __forceinline__ float4 scan_step(float4 v, float4 xg,
+                                            float& carry) {
+  const int lane = threadIdx.x % WARP;
+  const float s0 = __fmul_rn(v.x, xg.x);
+  const float s1 = __fadd_rn(s0, __fmul_rn(v.y, xg.y));
+  const float s2 = __fadd_rn(s1, __fmul_rn(v.z, xg.z));
+  const float s3 = __fadd_rn(s2, __fmul_rn(v.w, xg.w));
+  float incl = s3;                              // scan of the lane totals
+#pragma unroll
+  for (int d = 1; d < WARP; d <<= 1) {
+    const float t = __shfl_up_sync(FULL_MASK, incl, d);
+    if (lane >= d) incl = __fadd_rn(t, incl);
+  }
+  float excl = __shfl_up_sync(FULL_MASK, incl, 1);
+  if (lane == 0) excl = 0.f;
+  const float base = __fadd_rn(carry, excl);
+  const float4 o = make_float4(__fadd_rn(base, s0), __fadd_rn(base, s1),
+                               __fadd_rn(base, s2), __fadd_rn(base, s3));
+  carry = __shfl_sync(FULL_MASK, o.w, WARP - 1);
+  return o;
+}
 
 template <int NB>
 __global__ void __launch_bounds__(CHUNKS_PER_BLOCK* WARP)
@@ -100,55 +192,155 @@ __global__ void __launch_bounds__(CHUNKS_PER_BLOCK* WARP)
   float carry[NB];
 #pragma unroll
   for (int b = 0; b < NB; ++b) carry[b] = 0.f;
-  for (int q0 = 0; q0 < L; q0 += STEP * STEPS_AHEAD) {
+  for (int q0 = 0; q0 < L; q0 += GROUP) {
     // the loads of STEPS_AHEAD steps first, then their scans in order
     float4 v[STEPS_AHEAD];
     int4 ci[STEPS_AHEAD];
-#pragma unroll
-    for (int u = 0; u < STEPS_AHEAD; ++u) {
-      const int e = q0 + u * STEP + 4 * lane;
-      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-      ci[u] = make_int4(0, 0, 0, 0);
-      if (e < L) {                              // L % 4 == 0: all or none
-        v[u] = *reinterpret_cast<const float4*>(vals + src + e);
-        ci[u] = *reinterpret_cast<const int4*>(cols + src + e);
-      }
-    }
+    load_group(vals, cols, src, q0, L, v, ci);
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
       if (b >= nb) continue;                    // nb is warp-uniform
-      const float* xb = xv + (long long)b * Lx;
       float4 xg[STEPS_AHEAD];
-#pragma unroll
-      for (int u = 0; u < STEPS_AHEAD; ++u) {
-        xg[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (q0 + u * STEP + 4 * lane < L)
-          xg[u] = make_float4(xb[ci[u].x], xb[ci[u].y], xb[ci[u].z],
-                              xb[ci[u].w]);
-      }
+      gather_group(xv + (long long)b * Lx, ci, q0, L, xg);
 #pragma unroll
       for (int u = 0; u < STEPS_AHEAD; ++u) {
         const int e = q0 + u * STEP + 4 * lane;
         if (q0 + u * STEP >= L) continue;       // warp-uniform
-        const float s0 = __fmul_rn(v[u].x, xg[u].x);
-        const float s1 = __fadd_rn(s0, __fmul_rn(v[u].y, xg[u].y));
-        const float s2 = __fadd_rn(s1, __fmul_rn(v[u].z, xg[u].z));
-        const float s3 = __fadd_rn(s2, __fmul_rn(v[u].w, xg[u].w));
-        float incl = s3;                        // scan of the lane totals
-#pragma unroll
-        for (int d = 1; d < WARP; d <<= 1) {
-          const float t = __shfl_up_sync(FULL_MASK, incl, d);
-          if (lane >= d) incl = __fadd_rn(t, incl);
-        }
-        float excl = __shfl_up_sync(FULL_MASK, incl, 1);
-        if (lane == 0) excl = 0.f;
-        const float base = __fadd_rn(carry[b], excl);
-        const float4 o = make_float4(__fadd_rn(base, s0), __fadd_rn(base, s1),
-                                     __fadd_rn(base, s2),
-                                     __fadd_rn(base, s3));
+        const float4 o = scan_step(v[u], xg[u], carry[b]);
         if (e < L) *reinterpret_cast<float4*>(dst + b * cs + e) = o;
-        carry[b] = __shfl_sync(FULL_MASK, o.w, WARP - 1);
       }
+    }
+  }
+}
+
+// lo and hi of piece p of a shard's table `pc`; a slot at or past `pe` is
+// the padded piece (lo > hi).
+__device__ __forceinline__ int2 piece_span(const int* pc, int p, int pe) {
+  if (p >= pe) return make_int2(1, 0);
+  const int* rec = pc + (long long)p * 5;
+  return make_int2(rec[1], rec[2]);
+}
+
+// Step sum e (0 <= e < STEP) of a step scanned into the lanes' `o`: lane
+// e / 4 holds it, as component e % 4.  The whole warp calls it.
+__device__ __forceinline__ float step_sum(float4 o, int e) {
+  const int src = e >> 2, comp = e & 3;
+  const float a = __shfl_sync(FULL_MASK, o.x, src);
+  const float b = __shfl_sync(FULL_MASK, o.y, src);
+  const float c = __shfl_sync(FULL_MASK, o.z, src);
+  const float d = __shfl_sync(FULL_MASK, o.w, src);
+  return comp == 0 ? a : comp == 1 ? b : comp == 2 ? c : d;
+}
+
+// seg_piece_sums: seg_psum's loads and scan, a warp a chunk, but the
+// running sums stay in registers.  After each step's scan the warp reads
+// the chunk's pieces, the range [p0, p1) of the shard's table that
+// chunk_ptr gives, 32 at a time, a lane a piece: a piece whose hi lies in
+// the step stores d = psum[hi] - psum[lo - 1] (psum[hi] where lo == 0; 0
+// where lo > hi), piece_diff's one subtraction on seg_psum's sums.
+// psum[hi] comes from the lane that holds it (step_sum); psum[lo - 1] is
+// the previous piece's psum[hi] where that piece ends at lo - 1 in the
+// step, as pieces tile a chunk (one shuffle up), else it is fetched, or,
+// where it lies in an earlier step, kept in `pend`: pieces of a chunk are
+// disjoint and in position order, so at most one runs on past a step.  A
+// window holding such a piece is read again at the next step.  A padded
+// piece stores 0 whenever its window is read.
+template <int NB>
+__global__ void __launch_bounds__(CHUNKS_PER_BLOCK* WARP)
+    seg_piece_sums_kernel(const float* __restrict__ vals,
+                          const int* __restrict__ cols,
+                          const float* __restrict__ x, long long x_stride,
+                          const int* __restrict__ pieces,
+                          const int* __restrict__ chunk_ptr,
+                          const int* __restrict__ sids, int n_sids, int C,
+                          int L, int Lx, int Pp, int B,
+                          float* __restrict__ d) {
+  const int lane = threadIdx.x % WARP;
+  const long long chunk =
+      (long long)blockIdx.x * CHUNKS_PER_BLOCK + threadIdx.x / WARP;
+  if (chunk >= (long long)n_sids * C) return;   // whole warps leave
+  const int k = (int)(chunk / C), c = (int)(chunk % C);
+  const int sid = sids[k];
+  const int* cp = chunk_ptr + (long long)sid * (C + 1) + c;
+  const int p0 = cp[0], p1 = cp[1];
+  if (p0 >= p1) return;                         // no pieces: nothing to store
+  const int b0 = blockIdx.y * NB, nb = min(NB, B - b0);
+  const float* xv = shard_x(x, x_stride, sid, b0, Lx);
+  const long long src = ((long long)sid * C + c) * L;
+  const int* pc = pieces + (long long)sid * Pp * 5;
+  float* dk = d + ((long long)k * B + b0) * Pp;  // column b0's pieces
+  float carry[NB], pend[NB];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) carry[b] = pend[b] = 0.f;
+  int w0 = p0;                                  // the first unfinished window
+  int2 first = piece_span(pc, w0 + lane, p1);   // its pieces, loaded ahead
+  for (int q0 = 0; q0 < L; q0 += GROUP) {
+    float4 v[STEPS_AHEAD];
+    int4 ci[STEPS_AHEAD];
+    load_group(vals, cols, src, q0, L, v, ci);
+    int done = 0;                   // windows from w0 the group finished
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      if (b >= nb) continue;                    // nb is warp-uniform
+      float4 xg[STEPS_AHEAD];
+      gather_group(xv + (long long)b * Lx, ci, q0, L, xg);
+      float* db = dk + (long long)b * Pp;
+      int i0 = 0;                   // this column's first unfinished window
+#pragma unroll
+      for (int u = 0; u < STEPS_AHEAD; ++u) {
+        const int q = q0 + u * STEP, qe = q + STEP;
+        if (q >= L) continue;                   // warp-uniform
+        const float4 o = scan_step(v[u], xg[u], carry[b]);
+        // the piece before a window's lane 0: lane 31 of the window before,
+        // when that window was read in this step (else unknown: -2)
+        float h_in = 0.f;
+        int hi_in = -2;
+        for (int i = i0; w0 + i * WARP < p1; ++i) {
+          const int p = w0 + i * WARP + lane;
+          const int2 s = i == 0 ? first : piece_span(pc, p, p1);
+          const int lo = s.x, hi = s.y;
+          const bool real = p < p1 && lo <= hi;
+          const bool ends = real && hi >= q && hi < qe;
+          float h = 0.f;
+          if (__any_sync(FULL_MASK, ends))
+            h = step_sum(o, ends ? hi - q : 0);
+          // psum[lo - 1] is the previous piece's psum[hi] where that piece
+          // ends at lo - 1 in this step (pieces tile a chunk); else it is
+          // fetched, or `pend` where it lies in an earlier step
+          float h_prev = __shfl_up_sync(FULL_MASK, h, 1);
+          int hi_prev = __shfl_up_sync(FULL_MASK, real ? hi : -2, 1);
+          if (lane == 0) {
+            h_prev = h_in;
+            hi_prev = hi_in;
+          }
+          const bool at_here = real && lo > 0 && lo - 1 >= q && lo - 1 < qe;
+          const bool adj = hi_prev == lo - 1;
+          float before = at_here ? h_prev : pend[b];
+          if (__any_sync(FULL_MASK, at_here && !adj)) {
+            const float t = step_sum(o, at_here && !adj ? lo - 1 - q : 0);
+            if (at_here && !adj) before = t;
+          }
+          if (ends)
+            db[p] = lo == 0 ? h : __fsub_rn(h, before);
+          else if (p < p1 && !real)
+            db[p] = 0.f;
+          // a piece that runs on past the step: keep its sum at lo - 1 if
+          // that lies here, and read this window again at the next step
+          const bool on = real && hi >= qe;
+          const unsigned keep = __ballot_sync(FULL_MASK, on && at_here);
+          if (keep) pend[b] = __shfl_sync(FULL_MASK, before, __ffs(keep) - 1);
+          i0 = i;
+          if (__any_sync(FULL_MASK, on)) break;
+          i0 = i + 1;
+          h_in = __shfl_sync(FULL_MASK, h, WARP - 1);
+          hi_in = __shfl_sync(FULL_MASK, real ? hi : -2, WARP - 1);
+        }
+      }
+      done = i0;
+    }
+    if (done > 0) {
+      w0 += done * WARP;
+      first = piece_span(pc, w0 + lane, p1);
     }
   }
 }
@@ -202,29 +394,40 @@ __device__ __forceinline__ void load_records(const int* pc, int base, int pe,
 // b < nb adds column b's differences in piece order, 4 a shared-memory
 // read, leaving each piece's running sum in the stage; then every lane
 // stores the sums of the runs that end in its pieces.  `o` points at the
-// row's output of column 0, split 0.
-template <int NB>
+// row's output of column 0, split 0.  With DIFFS (NS = 1) the differences
+// are read from seg_piece_sums' d (`ps` the shard's column b0, piece p at
+// ps[p]): no records, one coalesced load a round.
+template <int NB, bool DIFFS>
 __device__ __forceinline__ void long_row_fixup(
     const float* ps, long long cs, const int* pc, int p, int pe, int L,
     int NS, int R, int nb, float* o, float (&sd)[NB][STAGE],
     int (&ss)[ROUND]) {
   const int lane = threadIdx.x % WARP;
   Records rc;
-  load_records(pc, p, pe, NS, rc);
+  if constexpr (!DIFFS) load_records(pc, p, pe, NS, rc);
   float acc = 0.f;                              // lane b: column b's sum
   int t = -1;                                   // the split being summed
   for (int base = p; base < pe; base += ROUND) {
 #pragma unroll
     for (int u = 0; u < LONG_LOADS; ++u) {
       const int i = u * WARP + lane;
-      ss[i] = rc.split[u];
+      if constexpr (DIFFS) {
+        ss[i] = 0;
 #pragma unroll
-      for (int b = 0; b < NB; ++b)
-        sd[b][i] = b < nb ? piece_diff(ps + b * cs + (long long)rc.ch[u] * L,
-                                       rc.lo[u], rc.hi[u])
-                          : 0.f;
+        for (int b = 0; b < NB; ++b)
+          sd[b][i] = b < nb && base + i < pe ? ps[b * cs + base + i] : 0.f;
+      } else {
+        ss[i] = rc.split[u];
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+          sd[b][i] = b < nb ? piece_diff(ps + b * cs +
+                                             (long long)rc.ch[u] * L,
+                                         rc.lo[u], rc.hi[u])
+                            : 0.f;
+      }
     }
-    load_records(pc, base + ROUND, pe, NS, rc);   // the next round's
+    if constexpr (!DIFFS)
+      load_records(pc, base + ROUND, pe, NS, rc);   // the next round's
     __syncwarp();
     const int cnt = min(ROUND, pe - base);
     if (lane < nb) {
@@ -250,7 +453,8 @@ __device__ __forceinline__ void long_row_fixup(
     __syncwarp();
     // piece i ends a run where the next piece has another split or the row
     // ends; the next round's first split is lane 0's first record
-    const int next_split = __shfl_sync(FULL_MASK, rc.split[0], 0);
+    int next_split = 0;
+    if constexpr (!DIFFS) next_split = __shfl_sync(FULL_MASK, rc.split[0], 0);
 #pragma unroll
     for (int u = 0; u < LONG_LOADS; ++u) {
       const int i = u * WARP + lane;
@@ -268,8 +472,8 @@ __device__ __forceinline__ void long_row_fixup(
   }
 }
 
-// Row r of the k-th launched shard: its piece table, psum of column b0
-// and output of column b0, split 0.
+// Row r of the k-th launched shard: its piece table (null without one),
+// psum or d of column b0 and output of column b0, split 0.
 struct FixupRow {
   const float* ps;
   const int* pc;
@@ -283,7 +487,7 @@ __device__ __forceinline__ FixupRow fixup_row(
     long long cs, int Pp, int R, int NS, int B, int b0) {
   const int sid = sids[k];
   return {psum + ((long long)k * B + b0) * cs,
-          pieces + (long long)sid * Pp * 5,
+          pieces ? pieces + (long long)sid * Pp * 5 : nullptr,
           piece_ptr + (long long)sid * (R + 1),
           out + ((long long)out_ids[k] * B + b0) * NS * R + r};
 }
@@ -291,9 +495,12 @@ __device__ __forceinline__ FixupRow fixup_row(
 // One column: at least 4 blocks an SM, so that the short rows' chain of
 // three dependent loads (piece_ptr, record, psum) has the warps to hide it
 // (left free, ptxas takes 66-68 registers a thread: 3 blocks an SM).
-template <int NB>
+// DIFFS: `src` is seg_piece_sums' d (n, B, Pp) and NS = 1, so a piece's
+// difference is one load at its index, the chain two loads (piece_ptr,
+// d) and `pieces`, C and L are not read; else `src` is psum (n, B, C, L).
+template <int NB, bool DIFFS>
 __global__ void __launch_bounds__(FIXUP_WARPS* WARP, NB == 1 ? 4 : 1)
-    seg_fixup_kernel(const float* __restrict__ psum,
+    seg_fixup_kernel(const float* __restrict__ src,
                      const int* __restrict__ pieces,
                      const int* __restrict__ piece_ptr,
                      const int* __restrict__ sids,
@@ -308,23 +515,32 @@ __global__ void __launch_bounds__(FIXUP_WARPS* WARP, NB == 1 ? 4 : 1)
   const long long warps = (long long)n_sids * wps;
   const long long w = (long long)blockIdx.x * FIXUP_WARPS + warp;
   const int b0 = blockIdx.y * NB, nb = min(NB, B - b0);
-  const long long cs = (long long)C * L;        // psum column stride
-  bool long_row = false;
+  const long long cs = DIFFS ? (long long)Pp : (long long)C * L;  // column
+  bool long_row = false;                                            // stride
   if (w < warps) {                              // idle warps still meet
     const int k = (int)(w / wps);               // the barrier below
     const int r = (int)(w % wps) * WARP + lane;
     const bool live = r < R;
-    const FixupRow row = fixup_row(psum, pieces, piece_ptr, sids, out_ids,
+    const FixupRow row = fixup_row(src, pieces, piece_ptr, sids, out_ids,
                                    out, k, r, cs, Pp, R, NS, B, b0);
     const int p = live ? row.ptr[r] : 0;
     const int pe = live ? row.ptr[r + 1] : 0;
     long_row = pe - p > LONG_ROW;
     const int m = long_row ? 0 : pe - p;        // pieces this lane walks
 
-    // -- short rows: records, then psum pairs, then the in-order sums ----
+    // -- short rows: records, then psum pairs (or the d of DIFFS), then
+    // the in-order sums -----------------------------------------------------
     int sp[LONG_ROW];
     float run[LONG_ROW][NB];                    // running sum at piece j
-    {
+    if constexpr (DIFFS) {
+#pragma unroll
+      for (int j = 0; j < LONG_ROW; ++j) {
+        sp[j] = 0;
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+          run[j][b] = j < m && b < nb ? row.ps[b * cs + p + j] : 0.f;
+      }
+    } else {
       int ch[LONG_ROW], lo[LONG_ROW], hi[LONG_ROW];
 #pragma unroll
       for (int j = 0; j < LONG_ROW; ++j) {
@@ -397,9 +613,9 @@ __global__ void __launch_bounds__(FIXUP_WARPS* WARP, NB == 1 ? 4 : 1)
       const long long wv = (long long)blockIdx.x * FIXUP_WARPS + v;
       const int k = (int)(wv / wps);
       const int r = (int)(wv % wps) * WARP + __ffs(mask) - 1;
-      const FixupRow row = fixup_row(psum, pieces, piece_ptr, sids, out_ids,
+      const FixupRow row = fixup_row(src, pieces, piece_ptr, sids, out_ids,
                                      out, k, r, cs, Pp, R, NS, B, b0);
-      long_row_fixup<NB>(row.ps, cs, row.pc, row.ptr[r], row.ptr[r + 1], L,
+      long_row_fixup<NB, DIFFS>(row.ps, cs, row.pc, row.ptr[r], row.ptr[r + 1], L,
                          NS, R, nb, row.o, stage_d[warp], stage_s[warp]);
     }
   }
@@ -433,23 +649,69 @@ RT_API int rt_seg_psum(const float* vals, const int* cols, const float* x,
                          psum, (cudaStream_t)stream);
 }
 
+namespace {
+
+// Both fix-ups' launch: a warp per 32 rows of a shard, FIXUP_WARPS warps a
+// block, RHS_CHUNK columns a grid.y.
+template <bool DIFFS>
+int launch_fixup(const float* src, const int* pieces, const int* piece_ptr,
+                 const int* sids, const int* out_ids, int n_sids, int C,
+                 int L, int Pp, int R, int NS, int B, float* out,
+                 cudaStream_t s) {
+  const long long warps = (long long)n_sids * ((R + WARP - 1) / WARP);
+  if (warps == 0 || B == 0) return 0;
+  const unsigned blocks = (unsigned)((warps + FIXUP_WARPS - 1) / FIXUP_WARPS);
+  constexpr int threads = FIXUP_WARPS * WARP;
+  if (B == 1)
+    seg_fixup_kernel<1, DIFFS><<<blocks, threads, 0, s>>>(
+        src, pieces, piece_ptr, sids, out_ids, n_sids, C, L, Pp, R, NS, B,
+        out);
+  else
+    seg_fixup_kernel<RHS_CHUNK, DIFFS>
+        <<<dim3(blocks, (B + RHS_CHUNK - 1) / RHS_CHUNK), threads, 0, s>>>(
+            src, pieces, piece_ptr, sids, out_ids, n_sids, C, L, Pp, R, NS,
+            B, out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 RT_API int rt_seg_fixup(const float* psum, const int* pieces,
                         const int* piece_ptr, const int* sids,
                         const int* out_ids, int n_sids, int C, int L, int Pp,
                         int R, int NS, int B, float* out, void* stream) {
-  const long long warps = (long long)n_sids * ((R + WARP - 1) / WARP);
-  if (warps == 0 || B == 0) return 0;
+  return launch_fixup<false>(psum, pieces, piece_ptr, sids, out_ids, n_sids,
+                             C, L, Pp, R, NS, B, out, (cudaStream_t)stream);
+}
+
+RT_API int rt_seg_piece_sums(const float* vals, const int* cols,
+                             const float* x, long long x_stride,
+                             const int* pieces, const int* chunk_ptr,
+                             const int* sids, int n_sids, int C, int L,
+                             int Lx, int Pp, int B, float* d, void* stream) {
+  const long long chunks = (long long)n_sids * C;
+  if (chunks == 0 || B == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  const unsigned blocks = (unsigned)((warps + FIXUP_WARPS - 1) / FIXUP_WARPS);
-  constexpr int threads = FIXUP_WARPS * WARP;
+  const unsigned blocks =
+      (unsigned)((chunks + CHUNKS_PER_BLOCK - 1) / CHUNKS_PER_BLOCK);
+  constexpr int threads = CHUNKS_PER_BLOCK * WARP;
   if (B == 1)
-    seg_fixup_kernel<1><<<blocks, threads, 0, s>>>(
-        psum, pieces, piece_ptr, sids, out_ids, n_sids, C, L, Pp, R, NS, B,
-        out);
+    seg_piece_sums_kernel<1><<<blocks, threads, 0, s>>>(
+        vals, cols, x, x_stride, pieces, chunk_ptr, sids, n_sids, C, L, Lx,
+        Pp, B, d);
   else
-    seg_fixup_kernel<RHS_CHUNK>
+    seg_piece_sums_kernel<RHS_CHUNK>
         <<<dim3(blocks, (B + RHS_CHUNK - 1) / RHS_CHUNK), threads, 0, s>>>(
-            psum, pieces, piece_ptr, sids, out_ids, n_sids, C, L, Pp, R, NS,
-            B, out);
+            vals, cols, x, x_stride, pieces, chunk_ptr, sids, n_sids, C, L,
+            Lx, Pp, B, d);
   return (int)cudaGetLastError();
+}
+
+// The seg family's fix-up: seg_fixup_kernel over seg_piece_sums' d, NS = 1,
+// straight into y (S, B, R) at the launched shards' own rows.
+RT_API int rt_seg_piece_fixup(const float* d, const int* piece_ptr,
+                              const int* sids, int n_sids, int Pp, int R,
+                              int B, float* out, void* stream) {
+  return launch_fixup<true>(d, nullptr, piece_ptr, sids, sids, n_sids, 0, 0,
+                            Pp, R, 1, B, out, (cudaStream_t)stream);
 }

@@ -27,7 +27,7 @@ __all__ = ["KERNELS", "launch_counts", "reset_launch_counts", "lib",
 
 #: Every kernel the library holds, by wrapper name.
 KERNELS = ("ell_spmv", "seg_psum", "seg_fixup", "split_combine",
-           "tile_contrib", "split_psum", "tile_walk_spmv")
+           "tile_contrib", "split_psum", "tile_walk_spmv", "seg_piece_sums")
 
 launch_counts = {name: 0 for name in KERNELS}
 
@@ -44,6 +44,9 @@ _SIGNATURES = {
                     _I, _P, _P),
     "rt_seg_psum": (_P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _P, _P),
     "rt_seg_fixup": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    "rt_seg_piece_sums": (_P, _P, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _P, _P),
+    "rt_seg_piece_fixup": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
     "rt_split_psum": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
     "rt_split_combine": (_P, _P, _I, _I, _I, _I, _P, _P),
     "rt_tile_spmv": (_P, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -35,7 +35,7 @@ from ..core.spmv import _warn_deprecated
 from .ref import bell_spmm_ref, bell_spmv_ref, ell_spmv_ref, seg_spmv_ref, \
     split_spmv_ref, tile_flat_spmv_ref, tile_spmv_ref
 from .spmv_ell import ell_spmv as _ell_kernel
-from .spmv_seg import seg_fixup, seg_psum
+from .spmv_seg import seg_fixup, seg_piece_fixup, seg_piece_sums, seg_psum
 from .spmv_split import split_combine, split_psum
 from .spmv_tile import tile_contrib, tile_walk_spmv
 
@@ -281,26 +281,31 @@ def hyb_spmv(ell_data, ell_cols, ovf_rows, ovf_cols, ovf_vals, x, *,
 
 def seg_spmv(seg: "SegMatrix | tuple", x, *, num_rows: int | None = None,
              device="cuda"):
-    """Nonzero-balanced segmented SpMV: per-chunk prefix sums
-    (``seg_psum``), then the carry fix-up.  ``seg`` is a
+    """Nonzero-balanced segmented SpMV: each piece's sum from the per-chunk
+    scan (``seg_piece_sums``), then the carry fix-up.  ``seg`` is a
     :class:`SegMatrix` or the tuple ``(vals, cols, rows, piece_chunk,
-    piece_lo, piece_hi, piece_row)`` (then ``num_rows`` is required)."""
+    piece_lo, piece_hi, piece_row)`` (then ``num_rows`` is required); its
+    pieces run in chunk order, as ``seg_from_csr`` makes them."""
     dev = resolve_device(device)
 
     def build(arrays, num_rows):
         vals, cols = _on(dev, arrays[0]), _idx(dev, arrays[1])
         p_chunk, p_lo, p_hi, p_row = arrays[3:]
-        return (vals, cols) + _piece_table(
+        pcs, ptr = _piece_table(
             dev, p_chunk, p_lo, p_hi, p_row,
             torch.zeros(len(p_row), dtype=torch.int32, device=dev),
             vals.shape[1], num_rows)
-    vals, cols, pcs, ptr = _device_form(
+        if bool((pcs[1:, 0] < pcs[:-1, 0]).any()):
+            raise ValueError("seg pieces must run in chunk order, row by "
+                             "row, as seg_from_csr makes them")
+        return vals, cols, pcs, ptr, _ranges(pcs[:, 0], vals.shape[0])
+    vals, cols, pcs, ptr, chunk_ptr = _device_form(
         seg, SegMatrix, ("vals", "cols", "rows", "piece_chunk", "piece_lo",
                          "piece_hi", "piece_row"), num_rows, "seg", dev,
         build)
     xb, batched = _x_in(dev, x)
     y = seg_stacked(vals[None], cols[None], pcs[None], ptr[None], xb[None],
-                    _one(dev))
+                    _one(dev), chunk_ptr=chunk_ptr[None])
     return _y_out(y[0], batched)
 
 
@@ -437,12 +442,6 @@ def ell_stacked(data, cols, x, sids, *, ell_len=None, out=None):
                        ell_len=ell_len, out=out)
 
 
-def _seg_fixup(psum, pieces, piece_ptr, sids, out):
-    """Seg carry fix-up straight into y (S, B, R)."""
-    return seg_fixup(psum, pieces, piece_ptr, sids, sids, num_splits=1,
-                     out=out)
-
-
 def _split_fixup_combine(psum, pieces, piece_ptr, sids, num_splits: int,
                          out):
     """Split carry fix-up into per-split partials (n, B, NS, R), then the
@@ -458,11 +457,29 @@ def _split_fixup_combine(psum, pieces, piece_ptr, sids, num_splits: int,
     return split_combine(part, sids, out=out)
 
 
-def seg_stacked(vals, cols, pieces, piece_ptr, x, sids, *, out=None):
-    """Segmented SpMV: per-chunk prefix sums, then the carry fix-up."""
+def _chunk_ranges(pieces, piece_ptr, num_chunks: int):
+    """(S, C+1) int32: each chunk's range of its shard's real pieces
+    (those below ``piece_ptr[:, R]``), which must run in chunk order."""
+    S, Pp, _ = pieces.shape
+    real = torch.arange(Pp, device=pieces.device)[None] \
+        < piece_ptr[:, -1:].long()
+    key = torch.where(real, pieces[:, :, 0].long(), num_chunks)
+    at = torch.arange(num_chunks + 1, device=pieces.device)
+    return torch.searchsorted(key.contiguous(),
+                              at.expand(S, -1).contiguous()).int()
+
+
+def seg_stacked(vals, cols, pieces, piece_ptr, x, sids, *, chunk_ptr=None,
+                out=None):
+    """Segmented SpMV: each piece's sum from the per-chunk scan, then the
+    carry fix-up over them.  ``chunk_ptr`` (S, C+1) is each chunk's range
+    of the shard's pieces (the executor's ``seg_chunk_ptr``); without it
+    :func:`_chunk_ranges` builds it from the table."""
+    if chunk_ptr is None:
+        chunk_ptr = _chunk_ranges(pieces, piece_ptr, vals.shape[1])
     out = _out(out, vals, vals.shape[0], x.shape[1], piece_ptr.shape[1] - 1)
-    psum = seg_psum(vals, cols, x, sids)
-    return _seg_fixup(psum, pieces, piece_ptr, sids, out)
+    d = seg_piece_sums(vals, cols, x, pieces, chunk_ptr, sids)
+    return seg_piece_fixup(d, piece_ptr, sids, out=out)
 
 
 def split_stacked(vals, cols, pieces, piece_ptr, x, sids, *,

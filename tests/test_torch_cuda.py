@@ -430,6 +430,82 @@ def test_seg_psum_on_card(device, L):
         assert torch.equal(psum(x), psum(x))
 
 
+#: Small matrices under the benchmark's seg plans: banded (halo, none)
+#: and rmat (random reordering, nonzero split).
+SEG_PROGRAMS = {
+    "banded": lambda: (mats.banded(4096, 4096 * 24, 400, seed=0),
+                       SpmvPlan(num_shards=4, kernel="seg")),
+    "rmat": lambda: (mats.rmat(4096, 4096 * 8, seed=0),
+                     SpmvPlan(num_shards=4, kernel="seg", reordering="random",
+                              distribution="nonzero")),
+}
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 11])
+@pytest.mark.parametrize("name", sorted(SEG_PROGRAMS))
+def test_seg_piece_sums_equal_the_two_kernel_path(device, name, B):
+    # the executor's own tables, both passes: seg_stacked (seg_piece_sums,
+    # then the fix-up over d) against seg_psum then seg_fixup, bitwise;
+    # B = 11 spans two chunks of 8 columns
+    A, plan = SEG_PROGRAMS[name]()
+    prog = P.lower(A, plan)
+    run = P.make_program_spmv_fn(prog, device=device)
+    T, sids = run.operands, run.families["seg"]
+    s = sids.long()
+    x = prog.x_to_device(_x(A.ncols, B))
+    for pre, xbuf in zip(("loc_", "rem_"),
+                         run.buffers(torch.from_numpy(x).to(device))):
+        a = [T[pre + k] for k in ("seg_vals", "seg_cols", "seg_pieces",
+                                  "piece_ptr")]
+        shape = (len(s), B, a[3].shape[1] - 1)
+        _lib.reset_launch_counts()
+        got = ops.seg_stacked(*a, xbuf, sids,
+                              chunk_ptr=T[pre + "seg_chunk_ptr"],
+                              out=torch.full(shape, float("nan"),
+                                             device=device))
+        torch.cuda.synchronize()
+        assert {k: v for k, v in _lib.launch_counts.items() if v} == {
+            "seg_piece_sums": 1, "seg_fixup": 1}
+        psum = spmv_seg.seg_psum(a[0], a[1], xbuf, sids)
+        want = spmv_seg.seg_fixup(psum, *a[2:], sids, sids, num_splits=1,
+                                  out=torch.full(shape, float("nan"),
+                                                 device=device))
+        assert torch.equal(got[s], want[s])
+        assert not got[s].isnan().any()
+        built = ops.seg_stacked(*a, xbuf, sids, out=torch.full(
+            shape, float("nan"), device=device))
+        assert torch.equal(built[s], got[s])
+        _columns_match_single(
+            lambda v: ops.seg_stacked(*a, v, sids,
+                                      chunk_ptr=T[pre + "seg_chunk_ptr"]),
+            xbuf, 1)
+
+
+@pytest.mark.parametrize("kernels", ["seg", "split", "seg+split"])
+def test_each_family_launches_its_own_kernels(device, kernels):
+    # the seg family: seg_piece_sums and the fix-up, never seg_psum; the
+    # split family: seg_psum, seg_fixup and split_combine
+    A = mats.powerlaw_tail(4096, 4096 * 16, n_monster=4, seed=0)
+    fams = kernels.split("+")
+    prog = P.lower(A, SpmvPlan(num_shards=4, shard_kernels=tuple(
+        fams[i % len(fams)] for i in range(4))))
+    _lib.reset_launch_counts()
+    fn = P.make_program_spmv_fn(prog, device=device)
+    y = fn(torch.from_numpy(prog.x_to_device(_x(A.ncols, 1)[:, 0]))
+           .to(device))
+    torch.cuda.synchronize()
+    launched = {k for k, v in _lib.launch_counts.items() if v}
+    want = set()
+    if "seg" in fams:
+        want |= {"seg_piece_sums", "seg_fixup"}
+    if "split" in fams:
+        want |= {"seg_psum", "seg_fixup", "split_combine"}
+    assert launched == want
+    np.testing.assert_allclose(
+        P.gather_b(prog, y), csr_matvec(A, _x(A.ncols, 1)[:, 0]),
+        rtol=2e-4, atol=2e-4)
+
+
 # --------------------------------------------------------------------------
 # chunks over 1024 and tile shapes other than (8k, 128)
 # --------------------------------------------------------------------------

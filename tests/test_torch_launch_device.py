@@ -110,6 +110,14 @@ WRAPPERS = {
         _meta(1, B, 32), _i32(S)),
     "tile_walk_spmv": lambda: spmv_tile.tile_walk_spmv(
         _meta(3, 8, 16), _i32(3), _i32(3), _meta(B, 32)),
+    "seg_piece_sums": lambda: spmv_seg.seg_piece_sums(
+        _meta(S, C, L), _i32(S, C, L), _meta(1, B, 16), _i32(S, 5, 5),
+        _i32(S, C + 1), _i32(S)),
+}
+#: Wrappers that launch a second kernel of one counted name.
+MORE_WRAPPERS = {
+    "seg_fixup": lambda: spmv_seg.seg_piece_fixup(
+        _meta(S, B, 5), _i32(S, R + 1), _i32(S), out=_meta(S, B, R)),
 }
 
 
@@ -120,3 +128,23 @@ def test_each_wrapper_launches_on_its_tensors_device(fake, name):
     assert current == torch.device("meta"), symbol
     assert args[-1] == "stream of meta"
     assert _lib.launch_counts[name] == 1
+
+
+@pytest.mark.parametrize("name", sorted(MORE_WRAPPERS))
+def test_each_further_wrapper_launches_on_its_tensors_device(fake, name):
+    MORE_WRAPPERS[name]()
+    (symbol, current, args), = fake.launches
+    assert current == torch.device("meta"), symbol
+    assert args[-1] == "stream of meta"
+    assert _lib.launch_counts[name] == 1
+
+
+@pytest.mark.parametrize("wrapper", sorted(WRAPPERS) + [
+    f"{n}+" for n in sorted(MORE_WRAPPERS)])
+def test_each_launch_passes_its_c_signatures_arguments(fake, wrapper):
+    # ctypes refuses a call whose argument count is not the signature's,
+    # and only on the card; count them here
+    (WRAPPERS[wrapper] if wrapper in WRAPPERS
+     else MORE_WRAPPERS[wrapper[:-1]])()
+    (symbol, _, args), = fake.launches
+    assert len(args) == len(_lib._SIGNATURES[symbol]), symbol
