@@ -973,9 +973,10 @@ def make_program_spmv_fn(program: SpmvProgram, mesh=None,
     and ``executor.upload`` (their copies to the device), and each
     capture ``executor.capture`` (:mod:`repro_torch.tracing`).  While
     ``tracing.recording()`` is true, each call records the span
-    ``spmv.call`` and counts ``spmv.calls`` and, where it found all
-    earlier work of this executor done (on the CPU: always),
-    ``spmv.starved``.
+    ``spmv.call`` and counts ``spmv.calls``, where it found all earlier
+    work of this executor done (on the CPU: always) ``spmv.starved``,
+    and, with split shards, the split family's counters (a graph replay
+    as the eager call; :func:`_split_counters`).
     """
     with tracing.span("executor.build"):
         return _build_executor(program, mesh, axis, device, pipeline, graphs)
@@ -1013,6 +1014,9 @@ def _build_executor(program, mesh, axis, device, pipeline, graphs):
     tile_sids = np.flatnonzero(kid == PROGRAM_KERNELS.index("tile"))
     rb_used = {pre: _tile_rows_used(ops[pre + "tile_ptr"][lo:hi], tile_sids)
                for pre in ("loc_", "rem_")}
+    num_splits = {"loc_": ops["NS_loc"], "rem_": ops["NS_rem"]}
+    counts = _split_counters(program, T, num_splits, families.get("split"),
+                             lo)
 
     def kernel_pass(pre: str, xbuf, num_splits: int):
         y = torch.empty((n, xbuf.shape[1], R), dtype=torch.float32,
@@ -1064,9 +1068,9 @@ def _build_executor(program, mesh, axis, device, pipeline, graphs):
         return xb, start_exchange(xb)()
 
     if graphs:
-        run = _graphed(eager, dev, S, per)
+        run = _graphed(eager, dev, S, per, counts)
     else:                                     # nothing to capture
-        run = _traced(eager, dev)
+        run = _traced(eager, dev, counts)
         run.prime = lambda shapes: None
         run.graph_stats = lambda: []
     run.program = program
@@ -1076,10 +1080,52 @@ def _build_executor(program, mesh, axis, device, pipeline, graphs):
     run.rows_out = R
     run.operands = T
     run.families = families
-    run.num_splits = {"loc_": ops["NS_loc"], "rem_": ops["NS_rem"]}
+    run.num_splits = num_splits
     run.rb_used = rb_used
     run.buffers = buffers
     return run
+
+
+def _split_counters(program: SpmvProgram, T: dict, num_splits: dict,
+                    sids, lo: int):
+    """``counts(B)``: what a recorded call of B columns adds to the
+    counters of the split family, fixed when the executor is built:
+    ``split.scratch_bytes``, the device scratch its two launches allocate
+    (:func:`kops.split_scratch_bytes`), and its shards' compulsory
+    operands, ``split.nnz`` and ``split.rows`` (theirs, in both passes
+    together), ``split.x_elems`` (the distinct columns they read, times
+    B) and ``split.y_elems`` (their rows, times B).  Nothing without
+    split shards."""
+    if sids is None:
+        return _no_counters
+    stages = [program.stages[lo + k] for k in sids.tolist()]
+    A = program.matrix
+    read = np.zeros(A.ncols, dtype=bool)
+    for st in stages:
+        read[A.col_index[A.row_ptr[st.row_offset]:
+                         A.row_ptr[st.row_offset + st.rows]]] = True
+    nnz = sum(st.nnz for st in stages)
+    rows = sum(st.rows for st in stages)
+    cols = int(read.sum())
+    scratch = sum(kops.split_scratch_bytes(T[pre + "seg_vals"],
+                                           T[pre + "piece_ptr"], len(stages),
+                                           1, ns)
+                  for pre, ns in num_splits.items())
+
+    def counts(B: int) -> dict:
+        return {"split.scratch_bytes": scratch * B, "split.nnz": nnz,
+                "split.rows": rows, "split.x_elems": cols * B,
+                "split.y_elems": rows * B}
+    return counts
+
+
+def _no_counters(B: int) -> dict:
+    return {}
+
+
+def _columns(x) -> int:
+    """B of an (S, per, B) x; 1 of an (S, per) x."""
+    return x.shape[2] if len(x.shape) == 3 else 1
 
 
 def _check_shards(x, S: int, per: int) -> None:
@@ -1094,10 +1140,11 @@ def _check_shards(x, S: int, per: int) -> None:
 MAX_GRAPHS = 16
 
 
-def _traced(eager, dev):
-    """``eager`` with the per-call span and counters.  On CUDA a call
-    starved the device where the event recorded at the end of this
-    executor's last recorded call has completed."""
+def _traced(eager, dev, counts=_no_counters):
+    """``eager`` with the per-call span and counters (``counts(B)``: the
+    per-shape ones).  On CUDA a call starved the device where the event
+    recorded at the end of this executor's last recorded call has
+    completed."""
     state = {"done": None}
 
     def run(x_shards):
@@ -1105,7 +1152,8 @@ def _traced(eager, dev):
             return eager(x_shards)
         with tracing.call_span("spmv.call"):
             done = state["done"]
-            _count_call(done is None or done.query())
+            _count_call(done is None or done.query(),
+                        counts(_columns(x_shards)))
             y = eager(x_shards)
             if dev.type == "cuda":
                 state["done"] = torch.cuda.current_stream(dev).record_event()
@@ -1113,14 +1161,18 @@ def _traced(eager, dev):
     return run
 
 
-def _count_call(starved: bool) -> None:
+def _count_call(starved: bool, per_shape: dict) -> None:
     tracing.count("spmv.calls")
     if starved:
         tracing.count("spmv.starved")
+    for name, n in per_shape.items():
+        tracing.count(name, n)
 
 
-def _graphed(eager, dev, S: int, per: int):
-    """``eager`` behind a cache of CUDA graphs, one per x shape."""
+def _graphed(eager, dev, S: int, per: int, counts=_no_counters):
+    """``eager`` behind a cache of CUDA graphs, one per x shape; a replay
+    counts what a call of its shape counts (``counts(B)``), as the eager
+    call would."""
     lock = threading.Lock()
     held = collections.OrderedDict()      # shape -> (graph, x, y, stats)
     state = {"stream": None, "done": None}
@@ -1175,7 +1227,8 @@ def _graphed(eager, dev, S: int, per: int):
         stream = torch.cuda.current_stream(dev)
         with lock:
             if traced:                # before this call enqueues anything
-                _count_call(state["done"] is None or state["done"].query())
+                _count_call(state["done"] is None or state["done"].query(),
+                            counts(_columns(x)))
             graph, x_static, y_static, stats = entry(tuple(x.shape))
             if state["done"] is not None:       # a caller on another stream
                 stream.wait_event(state["done"])

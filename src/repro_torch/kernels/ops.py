@@ -45,7 +45,7 @@ __all__ = ["SEG_CHUNK", "resolve_device", "hyb_from_csr", "seg_from_csr",
            "split_flat_spmv", "tile_spmv", "tile_flat_spmv", "bell_spmv",
            "bell_spmm", "ell_spmv_ref", "seg_spmv_ref", "split_spmv_ref",
            "tile_spmv_ref", "ell_stacked", "hyb_stacked", "seg_stacked",
-           "split_stacked", "tile_stacked"]
+           "split_stacked", "split_scratch_bytes", "tile_stacked"]
 
 #: Default elements per segmented chunk (lane-aligned).
 SEG_CHUNK = 512
@@ -489,6 +489,16 @@ def split_stacked(vals, cols, pieces, piece_ptr, x, sids, *,
     psum = seg_psum(vals, cols, x, sids)
     return _split_fixup_combine(psum, pieces, piece_ptr, sids, num_splits,
                                 out)
+
+
+def split_scratch_bytes(vals, piece_ptr, n: int, B: int,
+                        num_splits: int) -> int:
+    """Bytes of device scratch one :func:`split_stacked` call over ``n``
+    shards and B columns allocates: seg_psum's (n, B, C, L) running sums
+    and the (n, B, NS, R) per-split partials, float32."""
+    C, L = vals.shape[1], vals.shape[2]
+    R = piece_ptr.shape[1] - 1
+    return 4 * n * B * (C * L + num_splits * R)
 
 
 def tile_stacked(data, xcol, brow, tile_ptr, x, sids, *, rb_used=None,

@@ -28,7 +28,13 @@ and ``lower.emu_accounting``; ``executor.build`` over
 ``executor.operands`` and ``executor.upload``; ``executor.capture``;
 the per-call ``spmv.call`` with the counters ``spmv.calls`` and
 ``spmv.starved`` (calls that found all earlier work of their executor
-done, so the device waited for them).
+done, so the device waited for them); and, in an executor with split
+shards, the split family's per-call counters, fixed per x shape and
+counted at graph replays too: ``split.scratch_bytes`` (the bytes of its
+running sums and per-split partials, both passes), ``split.nnz``,
+``split.rows``, ``split.x_elems`` and ``split.y_elems`` (its shards'
+nonzeros and rows, the distinct x elements they read and the y elements
+they write).
 """
 from __future__ import annotations
 

@@ -5,8 +5,10 @@ Needs an NVIDIA GPU with ``nvcc``; skips without one.  Run on a GPU host:
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import json
 import re
 import warnings
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -740,6 +742,54 @@ def test_graph_replay_equals_eager(device, name):
     y = P.device_spmv(graphed, np.ones(A.ncols))
     np.testing.assert_allclose(y, csr_matvec(A, np.ones(A.ncols)),
                                rtol=2e-4, atol=2e-4)
+
+
+def test_powerlaw_tail_plan_replays_bitwise_and_counts_split_scratch(
+        device):
+    """The benchmark's powerlaw_tail plan (split on the four shards with
+    the dense rows, seg on the rest) at 65,536 rows: graph replays are
+    bitwise the eager calls, a vector and an (N, 8) block, and each
+    recorded replay counts the split family's scratch as the eager call
+    does."""
+    from repro_torch import tracing
+    conf = json.loads((Path(__file__).resolve().parents[1] / "bench" /
+                       "configs" / "powerlaw_tail.json").read_text())
+    M, n_monster = 1 << 16, conf["matrix"]["n_monster"]
+    A = mats.powerlaw_tail(M, 2 * n_monster * M, n_monster=n_monster,
+                           seed=0)
+    prog = P.lower(A, SpmvPlan(**conf["plan"]))
+    assert prog.shard_kernels() == tuple(conf["plan"]["shard_kernels"])
+    eager = P.make_program_spmv_fn(prog, device=device)
+    graphed = P.make_program_spmv_fn(prog, device=device, graphs=True)
+    rng = np.random.default_rng(3)
+    try:
+        for shape in ((M,), (M, 8)):
+            xs = [_on_card(prog, rng.standard_normal(shape), device)
+                  for _ in range(3)]
+            graphed(xs[0])                        # the capture
+            tracing.reset()
+            tracing.enable()
+            want = [eager(x) for x in xs]
+            torch.cuda.synchronize(device)
+            per_call = tracing.counter("split.scratch_bytes") // 3
+            assert per_call > 0
+            tracing.reset()                       # a new session
+            tracing.enable()
+            got = [graphed(x) for x in xs]
+            torch.cuda.synchronize(device)
+            assert tracing.counter("spmv.calls") == 3
+            assert tracing.counter("split.scratch_bytes") == 3 * per_call
+            tracing.reset()
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+    finally:
+        tracing.reset()
+    x = rng.standard_normal(M)
+    y = P.device_spmv(graphed, x).astype(np.float64)
+    xf = x.astype(np.float32).astype(np.float64)
+    scale = np.abs(csr_matvec(dataclasses.replace(
+        A, values=np.abs(A.values)), np.abs(xf))).max()
+    err = np.abs(y - csr_matvec(A, xf)).max() / scale
+    assert err <= conf["limit"]["norm_err"]
 
 
 @pytest.mark.parametrize("graphs", [True, False])
