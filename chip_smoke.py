@@ -60,7 +60,7 @@ scripts of ``examples_torch/``:
   (``warm_start`` checked: no second autotune), blocked_band under its
   mixed plan and powerlaw_tail under ``split``, so requests reach
   ``ell_spmv``, ``seg_piece_sums``, ``seg_psum``, the fix-up,
-  ``split_combine`` and ``tile_contrib`` through graph-replayed executors.  8 client threads
+  ``split_fixup`` and ``tile_contrib`` through graph-replayed executors.  8 client threads
   send 32 single vectors each, round-robin over the tenants (x from a
   seeded generator), then one (N, 8) block per tenant.  Every answer
   must be within the |A|·|x|-scaled 2e-4 of a float64 product (held to
@@ -164,8 +164,12 @@ on the same inputs (rtol = atol = 1e-5 on |A|·|x|-scaled values; the
 carry fix-up and the combine exactly) and timed with CUDA events beside
 its memory bound, the plain version and a PyTorch library call; the
 launches of the (N, 8) block are replayed, checked and timed the same
-way (``kernels_b8``, ``ms_b8`` in the summary).  ``tile_contrib``'s
-output starts as NaN, so an entry it does not write fails its check.
+way (``kernels_b8``, ``ms_b8`` in the summary).  The split family's
+fused ``split_fixup`` is replayed beside the pair it replaced on the
+main path (``seg_fixup`` into NS partials, then ``split_combine``, the
+reference's counterparts, which only the replays launch) and must equal
+it bitwise.  ``tile_contrib``'s and ``split_fixup``'s outputs start as
+NaN, so an entry they do not write fails their check.
 Any failed check raises.  Exits non-zero, printing no result, without
 CUDA or without the port.
 """
@@ -201,6 +205,8 @@ REPLACES = {
     "tile_contrib": "src/repro/kernels/spmv_tile.py:91",
     "split_psum": "src/repro/kernels/spmv_split.py:43",
     "tile_walk_spmv": "src/repro/kernels/spmv_tile.py:51",
+    "split_fixup": "src/repro/kernels/ops.py:257 + "
+                   "src/repro/kernels/spmv_split.py:77",
 }
 SOURCE = {
     "ell_spmv": "src/repro_torch/csrc/spmv_ell.cu",
@@ -211,12 +217,18 @@ SOURCE = {
     "tile_contrib": "src/repro_torch/csrc/spmv_tile.cu",
     "split_psum": "src/repro_torch/csrc/spmv_split.cu",
     "tile_walk_spmv": "src/repro_torch/csrc/spmv_tile.cu",
+    "split_fixup": "src/repro_torch/csrc/spmv_seg.cu",
 }
 #: The phase whose numbers stand for each kernel in the summary line.
 HEADLINE = {"ell_spmv": "cop20k_A/ell", "seg_psum": "powerlaw_tail",
             "seg_fixup": "cop20k_A/seg", "split_combine": "powerlaw_tail",
             "tile_contrib": "blocked_band", "split_psum": "api/split64",
-            "tile_walk_spmv": "api/tile", "seg_piece_sums": "cop20k_A/seg"}
+            "tile_walk_spmv": "api/tile", "seg_piece_sums": "cop20k_A/seg",
+            "split_fixup": "powerlaw_tail"}
+#: Kernels no main path launches: the reference's counterparts that a
+#: fused kernel replaced there, checked and timed through their replays.
+REPLAYED_ONLY = {"split_combine": "the split family's fix-up writes y "
+                                  "(split_fixup); replayed beside it"}
 #: The phases of the general walks (tile shapes the fast walks do not
 #: take), listed under their kernel in the summary line.
 GENERAL_WALKS = {"tile_walk_spmv": ("api/tile16x64", "api/tile32x32",
@@ -319,8 +331,8 @@ def family_replays(torch, run, pre, x, fam, sids):
         """Each listed shard's real entry count, the last of its ranges."""
         return ptr[sids.long(), ptr.shape[1] - 1].tolist()
 
-    def y_out():
-        return torch.empty((S, B, R), device=x.device)
+    def y_out(device=x.device):
+        return torch.empty((S, B, R), device=device)
 
     def rec(name, kernel, plain, scale, byts, flops, *, exact=False,
             by_sid=True, plain_timed=None, library=None):
@@ -432,6 +444,23 @@ def family_replays(torch, run, pre, x, fam, sids):
         lambda: spmv_split.split_combine_plain(part, sids, y_out()),
         None, nbytes(part) + ybytes + 4 * n, n * B * ns * R, exact=True,
         library=lambda: part.sum(dim=2))
+    # the main path's fused fix-up and combine: bitwise the pair above
+    pair = spmv_split.split_combine(part, sids, out=y_out())
+    fused = spmv_split.split_fixup(psum, pcs, ptr, sids, num_splits=ns,
+                                   out=torch.full_like(pair, float("nan")))
+    check(torch.equal(fused[sids.long()].view(torch.int32),
+                      pair[sids.long()].view(torch.int32)),
+          f"split_fixup ({pre}pass) differs from seg_fixup + split_combine")
+    rec("split_fixup",
+        lambda: spmv_split.split_fixup(psum, pcs, ptr, sids, num_splits=ns,
+                                       out=torch.full_like(pair,
+                                                           float("nan"))),
+        lambda: spmv_split.split_fixup_plain(*cpu[:4], ns, y_out("cpu")),
+        None, 4 * B * distinct(torch, read_at, shared=False)
+        + 20 * sum(n_pieces) + 4 * n * ptr.shape[1] + 4 * n + ybytes,
+        2 * B * sum(n_pieces), exact=True,
+        plain_timed=lambda: spmv_split.split_fixup_plain(psum, pcs, ptr,
+                                                         sids, ns, y_out()))
     return recs
 
 
@@ -843,8 +872,8 @@ def run_program(torch, label, A, plan, singles, block, device,
 
 #: The kernel wrappers the per-format API reaches, by their names in
 #: ``repro_torch.kernels.ops``.
-API_WRAPPERS = ("_ell_kernel", "seg_psum", "seg_fixup", "seg_piece_sums",
-                "seg_piece_fixup", "split_psum", "split_combine",
+API_WRAPPERS = ("_ell_kernel", "seg_psum", "seg_piece_sums",
+                "seg_piece_fixup", "split_psum", "split_fixup",
                 "tile_walk_spmv", "tile_contrib")
 
 
@@ -935,8 +964,8 @@ def api_record(torch, label, wrapper, a, kw) -> dict:
             + 4 * B * distinct(torch, [cols.reshape(-1)], shared=True)
             + 4 * B * vals.numel() + 4 * len(rest),
             ops=2 * B * vals.numel())
-    elif wrapper == "seg_fixup":
-        psum, pcs, ptr = a[:3]
+    elif wrapper == "split_fixup":
+        psum, pcs, ptr, sids = a
         _, B, _, L = psum.shape
         R, ns = ptr.shape[1] - 1, kw["num_splits"]
         m = int(ptr[0, R])
@@ -947,33 +976,26 @@ def api_record(torch, label, wrapper, a, kw) -> dict:
         shape = kw["out"].shape
         cpu = [t.cpu() for t in a]
         rec.update(
-            name="seg_fixup", exact=True,
-            kernel=lambda: spmv_seg.seg_fixup(*a, num_splits=ns,
-                                              out=fresh(shape)()),
+            name="split_fixup", exact=True,
+            # NaN until the first call, the checked one, which must write
+            # every row
+            kernel=lambda: spmv_split.split_fixup(*a, num_splits=ns, out=(
+                torch.full(shape, float("nan"), device=dev))),
             # CUDA's index_add_ has no fixed order: the exact check runs
             # the plain version on the CPU copies of the same inputs
-            plain=lambda: spmv_seg.seg_fixup_plain(*cpu,
-                                                   fresh(shape, "cpu")()),
-            plain_timed=lambda: spmv_seg.seg_fixup_plain(*a, fresh(shape)()),
+            plain=lambda: spmv_split.split_fixup_plain(
+                *cpu, ns, fresh(shape, "cpu")()),
+            plain_timed=lambda: spmv_split.split_fixup_plain(
+                *a, ns, fresh(shape)()),
             scale=None,
             bytes=4 * B * distinct(torch, [read_at], shared=False) + 20 * m
-            + 4 * (R + 1) + 8 + 4 * B * ns * R,
+            + 4 * (R + 1) + 4 + 4 * B * R,
             ops=2 * B * m)
     elif wrapper == "seg_piece_sums":
         rec.update(name=wrapper, **piece_sums_replay(torch, *a))
     elif wrapper == "seg_piece_fixup":
         rec.update(name="seg_fixup", exact=True, scale=None,
                    **piece_fixup_replay(torch, *a, kw["out"].shape[0]))
-    elif wrapper == "split_combine":
-        part, sids = a
-        _, B, ns, R = part.shape
-        out = fresh(kw["out"].shape)
-        rec.update(
-            name="split_combine", exact=True, scale=None,
-            kernel=lambda: spmv_split.split_combine(part, sids, out=out()),
-            plain=lambda: spmv_split.split_combine_plain(part, sids, out()),
-            bytes=nbytes(part) + 4 * B * R + 4, ops=B * ns * R,
-            library=lambda: part.sum(dim=2))
     elif wrapper == "tile_walk_spmv":
         data, tcols, tptr, x = a
         mask = kw.get("mask")
@@ -1141,7 +1163,7 @@ def run_api_call(torch, label, A, call, singles, block, device) -> dict:
 
 
 #: The kernels the serving phase must reach through the router.
-SERVING_KERNELS = ("ell_spmv", "seg_psum", "seg_fixup", "split_combine",
+SERVING_KERNELS = ("ell_spmv", "seg_psum", "seg_fixup", "split_fixup",
                    "tile_contrib", "seg_piece_sums")
 CLIENTS, REQUESTS_PER_CLIENT = 8, 32
 
@@ -2608,7 +2630,10 @@ def run_phases(torch, device, seed, artifact_dir) -> int:
     print(json.dumps({"examples": examples}))
     summary = []
     for name in _lib.KERNELS:
-        check(totals[name] > 0, f"{name} was never launched on the main path")
+        check(totals[name] > 0 or name in REPLAYED_ONLY,
+              f"{name} was never launched on the main path")
+        check(not (totals[name] and name in REPLAYED_ONLY),
+              f"{name} was launched on the main path")
         phase = HEADLINE[name]
         s = results[phase]["kernels"][name]
         summary.append(dict(
@@ -2632,6 +2657,8 @@ def run_phases(torch, device, seed, artifact_dir) -> int:
         if name == "seg_fixup":
             summary[-1]["note"] = ("the carry fix-up is jnp glue in the "
                                    "reference, not a pallas_call")
+        if name in REPLAYED_ONLY:
+            summary[-1]["note"] = REPLAYED_ONLY[name]
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

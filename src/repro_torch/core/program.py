@@ -1015,8 +1015,7 @@ def _build_executor(program, mesh, axis, device, pipeline, graphs):
     rb_used = {pre: _tile_rows_used(ops[pre + "tile_ptr"][lo:hi], tile_sids)
                for pre in ("loc_", "rem_")}
     num_splits = {"loc_": ops["NS_loc"], "rem_": ops["NS_rem"]}
-    counts = _split_counters(program, T, num_splits, families.get("split"),
-                             lo)
+    counts = _split_counters(program, T, families.get("split"), lo)
 
     def kernel_pass(pre: str, xbuf, num_splits: int):
         y = torch.empty((n, xbuf.shape[1], R), dtype=torch.float32,
@@ -1086,11 +1085,10 @@ def _build_executor(program, mesh, axis, device, pipeline, graphs):
     return run
 
 
-def _split_counters(program: SpmvProgram, T: dict, num_splits: dict,
-                    sids, lo: int):
+def _split_counters(program: SpmvProgram, T: dict, sids, lo: int):
     """``counts(B)``: what a recorded call of B columns adds to the
     counters of the split family, fixed when the executor is built:
-    ``split.scratch_bytes``, the device scratch its two launches allocate
+    ``split.scratch_bytes``, the device scratch its two passes allocate
     (:func:`kops.split_scratch_bytes`), and its shards' compulsory
     operands, ``split.nnz`` and ``split.rows`` (theirs, in both passes
     together), ``split.x_elems`` (the distinct columns they read, times
@@ -1107,10 +1105,8 @@ def _split_counters(program: SpmvProgram, T: dict, num_splits: dict,
     nnz = sum(st.nnz for st in stages)
     rows = sum(st.rows for st in stages)
     cols = int(read.sum())
-    scratch = sum(kops.split_scratch_bytes(T[pre + "seg_vals"],
-                                           T[pre + "piece_ptr"], len(stages),
-                                           1, ns)
-                  for pre, ns in num_splits.items())
+    scratch = sum(kops.split_scratch_bytes(T[pre + "seg_vals"], len(stages),
+                                           1) for pre in ("loc_", "rem_"))
 
     def counts(B: int) -> dict:
         return {"split.scratch_bytes": scratch * B, "split.nnz": nnz,

@@ -11,10 +11,15 @@
 // seg_piece_sums: d[k, b, p] = psum[k, b, chunk, hi] - psum[k, b, chunk, lo - 1]
 //            for each piece p of shard s, psum never stored
 // seg_fixup over d (DIFFS): y[s, b, r] = sum over r's pieces of d[k, b, p]
+// split_fixup: y[s, b, r] = sum over t in split order of seg_fixup's
+//            out[., b, t, r], for the splits t that r has pieces in
 //
 // The seg family runs seg_piece_sums, then seg_fixup over d; the split
-// family (pieces split-ordered within a row, so not in chunk order) keeps
-// seg_psum -> seg_fixup -> split_combine.  seg_piece_sums replaces seg_psum
+// family (pieces split-ordered within a row, so not in chunk order) runs
+// seg_psum -> split_fixup, seg_fixup's kernel writing y: each row's runs
+// folded in split order as the thread meets them, bitwise seg_fixup into
+// (n, B, NS, R) partials and then split_combine, which stay as the
+// reference's counterparts.  seg_piece_sums replaces seg_psum
 // and the fix-up's psum gathers on the seg path, and is bitwise that pair:
 // the same loads, the same scan, the same one subtraction a piece, and the
 // fix-up's in-order sums of the same differences.
@@ -48,7 +53,12 @@
 // [piece_ptr[r], piece_ptr[r+1]) of the row-ordered piece table,
 // split-ordered within the row, so the ranges come from one coalesced
 // read of piece_ptr; nothing is searched, and a row without pieces costs
-// that read and its zero stores.  Over seg_piece_sums' d a row's
+// that read and its zero stores.  Into partials a row stores NS values a
+// column, nearly all zeros at NS = 64 (254 MB a call on powerlaw_tail);
+// into y (split_fixup, `to_y`) it stores one: at each change of split, and
+// at the row's end, the run's sum is added to a row sum that starts at +0
+// (split_combine's sum without its +0 terms, which change nothing: a sum
+// from +0 in round-to-nearest is never -0).  Over seg_piece_sums' d a row's
 // differences are contiguous too, d[ptr[r]] .. d[ptr[r+1] - 1], and no
 // record is read.  A warp owns 32 consecutive rows of a shard:
 //   * short rows (at most LONG_ROW pieces): the lane walks its own row.
@@ -74,8 +84,10 @@
 //     adds read shared memory and store nothing.
 // Each piece is added exactly once, in piece order, starting from 0 for
 // each (row, split): the in-order sum seg_fixup_plain takes with
-// index_add_, bitwise.  Padded piece rows [0, 1, 0, 0, 0] (lo > hi) add
-// nothing.  Record loads feed up to RHS_CHUNK columns, as in seg_psum.
+// index_add_, bitwise (split_fixup: then the runs in order from 0, as
+// split_fixup_plain adds them).  Padded piece rows [0, 1, 0, 0, 0]
+// (lo > hi) add nothing.  Record loads feed up to RHS_CHUNK columns, as in
+// seg_psum.
 //
 // seg_piece_sums: the seg family's running sums stay out of device memory.
 // seg_psum writes 4 bytes a stored element (320 MB a call on an 80 M-nnz
@@ -396,16 +408,21 @@ __device__ __forceinline__ void load_records(const int* pc, int base, int pe,
 // stores the sums of the runs that end in its pieces.  `o` points at the
 // row's output of column 0, split 0.  With DIFFS (NS = 1) the differences
 // are read from seg_piece_sums' d (`ps` the shard's column b0, piece p at
-// ps[p]): no records, one coalesced load a round.
+// ps[p]): no records, one coalesced load a round.  With `to_y` (not DIFFS)
+// lane b adds each finished run to column b's row sum instead, across
+// rounds, and stores that once at the row's end into y (`o`, a column R
+// floats apart); nothing goes back to the stage.
 template <int NB, bool DIFFS>
 __device__ __forceinline__ void long_row_fixup(
     const float* ps, long long cs, const int* pc, int p, int pe, int L,
-    int NS, int R, int nb, float* o, float (&sd)[NB][STAGE],
+    int NS, int R, int nb, bool to_y, float* o, float (&sd)[NB][STAGE],
     int (&ss)[ROUND]) {
   const int lane = threadIdx.x % WARP;
+  const bool fold = !DIFFS && to_y;   // false at compile time under DIFFS
   Records rc;
   if constexpr (!DIFFS) load_records(pc, p, pe, NS, rc);
   float acc = 0.f;                              // lane b: column b's sum
+  float row = 0.f;                              // fold: its finished runs
   int t = -1;                                   // the split being summed
   for (int base = p; base < pe; base += ROUND) {
 #pragma unroll
@@ -440,17 +457,20 @@ __device__ __forceinline__ void long_row_fixup(
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           if (i0 + j < cnt) {
+            if (fold && ts[j] != t) row = __fadd_rn(row, acc);  // +0 first
             acc = ts[j] != t ? 0.f : acc;       // a new run starts from 0
             acc = __fadd_rn(acc, ds[j]);
             t = ts[j];
             ds[j] = acc;
           }
         }
-        *reinterpret_cast<float4*>(&sd[lane][i0]) =
-            make_float4(ds[0], ds[1], ds[2], ds[3]);
+        if (!fold)
+          *reinterpret_cast<float4*>(&sd[lane][i0]) =
+              make_float4(ds[0], ds[1], ds[2], ds[3]);
       }
     }
     __syncwarp();
+    if (fold) continue;           // the stage is refilled after this sync
     // piece i ends a run where the next piece has another split or the row
     // ends; the next round's first split is lane 0's first record
     int next_split = 0;
@@ -470,6 +490,7 @@ __device__ __forceinline__ void long_row_fixup(
     }
     __syncwarp();                 // the stage is read before it is refilled
   }
+  if (fold && lane < nb) o[(long long)lane * R] = __fadd_rn(row, acc);
 }
 
 // Row r of the k-th launched shard: its piece table (null without one),
@@ -498,6 +519,8 @@ __device__ __forceinline__ FixupRow fixup_row(
 // DIFFS: `src` is seg_piece_sums' d (n, B, Pp) and NS = 1, so a piece's
 // difference is one load at its index, the chain two loads (piece_ptr,
 // d) and `pieces`, C and L are not read; else `src` is psum (n, B, C, L).
+// `to_y` (read only without DIFFS): `out` is y (S, B, R) at out_ids[k],
+// one value a row and column, its runs' sum; else the NS-split output.
 template <int NB, bool DIFFS>
 __global__ void __launch_bounds__(FIXUP_WARPS* WARP, NB == 1 ? 4 : 1)
     seg_fixup_kernel(const float* __restrict__ src,
@@ -506,7 +529,7 @@ __global__ void __launch_bounds__(FIXUP_WARPS* WARP, NB == 1 ? 4 : 1)
                      const int* __restrict__ sids,
                      const int* __restrict__ out_ids, int n_sids, int C,
                      int L, int Pp, int R, int NS, int B,
-                     float* __restrict__ out) {
+                     float* __restrict__ out, bool to_y) {
   __shared__ unsigned long_rows[FIXUP_WARPS];   // each warp's, a bit a lane
   __shared__ __align__(16) float stage_d[FIXUP_WARPS][NB][STAGE];  // a long
   __shared__ __align__(16) int stage_s[FIXUP_WARPS][ROUND];  // row's round
@@ -516,13 +539,16 @@ __global__ void __launch_bounds__(FIXUP_WARPS* WARP, NB == 1 ? 4 : 1)
   const long long w = (long long)blockIdx.x * FIXUP_WARPS + warp;
   const int b0 = blockIdx.y * NB, nb = min(NB, B - b0);
   const long long cs = DIFFS ? (long long)Pp : (long long)C * L;  // column
-  bool long_row = false;                                            // stride
+                                                                    // stride
+  const bool fold = !DIFFS && to_y;   // false at compile time under DIFFS
+  const int ons = fold ? 1 : NS;                // splits of the output
+  bool long_row = false;
   if (w < warps) {                              // idle warps still meet
     const int k = (int)(w / wps);               // the barrier below
     const int r = (int)(w % wps) * WARP + lane;
     const bool live = r < R;
     const FixupRow row = fixup_row(src, pieces, piece_ptr, sids, out_ids,
-                                   out, k, r, cs, Pp, R, NS, B, b0);
+                                   out, k, r, cs, Pp, R, ons, B, b0);
     const int p = live ? row.ptr[r] : 0;
     const int pe = live ? row.ptr[r + 1] : 0;
     long_row = pe - p > LONG_ROW;
@@ -561,16 +587,19 @@ __global__ void __launch_bounds__(FIXUP_WARPS* WARP, NB == 1 ? 4 : 1)
                              : 0.f;
       }
     }
-    float acc[NB];
+    float acc[NB], sum[NB];                     // sum: fold's finished runs
 #pragma unroll
-    for (int b = 0; b < NB; ++b) acc[b] = 0.f;
+    for (int b = 0; b < NB; ++b) acc[b] = sum[b] = 0.f;
     int t_last = -1;
 #pragma unroll
     for (int j = 0; j < LONG_ROW; ++j) {
       if (j < m) {
         if (j > 0 && sp[j] != sp[j - 1]) {
 #pragma unroll
-          for (int b = 0; b < NB; ++b) acc[b] = 0.f;
+          for (int b = 0; b < NB; ++b) {
+            if (fold) sum[b] = __fadd_rn(sum[b], acc[b]);
+            acc[b] = 0.f;
+          }
         }
 #pragma unroll
         for (int b = 0; b < NB; ++b) {
@@ -580,7 +609,13 @@ __global__ void __launch_bounds__(FIXUP_WARPS* WARP, NB == 1 ? 4 : 1)
         t_last = sp[j];
       }
     }
-    if (live && NS == 1) {
+    if (fold) {                 // the last run, then one store; long: below
+      if (live && !long_row) {
+#pragma unroll
+        for (int b = 0; b < NB; ++b) sum[b] = __fadd_rn(sum[b], acc[b]);
+        store_run<NB>(row.o, 1, R, 0, nb, sum);
+      }
+    } else if (live && NS == 1) {
       if (!long_row) store_run<NB>(row.o, 1, R, 0, nb, acc);  // long: below
     } else if (live) {          // every split of the row; a long row's 0s
       const int t_first = m ? sp[0] : NS;
@@ -606,6 +641,7 @@ __global__ void __launch_bounds__(FIXUP_WARPS* WARP, NB == 1 ? 4 : 1)
   const unsigned mine = __ballot_sync(FULL_MASK, long_row);
   if (lane == 0) long_rows[warp] = mine;
   __syncthreads();         // a long row's zero stores land before its sums
+                           // (into partials; into y its lane stores none)
   int rank = 0;
   for (int v = 0; v < FIXUP_WARPS; ++v) {
     for (unsigned mask = long_rows[v]; mask; mask &= mask - 1) {
@@ -614,9 +650,9 @@ __global__ void __launch_bounds__(FIXUP_WARPS* WARP, NB == 1 ? 4 : 1)
       const int k = (int)(wv / wps);
       const int r = (int)(wv % wps) * WARP + __ffs(mask) - 1;
       const FixupRow row = fixup_row(src, pieces, piece_ptr, sids, out_ids,
-                                     out, k, r, cs, Pp, R, NS, B, b0);
+                                     out, k, r, cs, Pp, R, ons, B, b0);
       long_row_fixup<NB, DIFFS>(row.ps, cs, row.pc, row.ptr[r], row.ptr[r + 1], L,
-                         NS, R, nb, row.o, stage_d[warp], stage_s[warp]);
+                         NS, R, nb, to_y, row.o, stage_d[warp], stage_s[warp]);
     }
   }
 }
@@ -656,7 +692,7 @@ namespace {
 template <bool DIFFS>
 int launch_fixup(const float* src, const int* pieces, const int* piece_ptr,
                  const int* sids, const int* out_ids, int n_sids, int C,
-                 int L, int Pp, int R, int NS, int B, float* out,
+                 int L, int Pp, int R, int NS, int B, float* out, bool to_y,
                  cudaStream_t s) {
   const long long warps = (long long)n_sids * ((R + WARP - 1) / WARP);
   if (warps == 0 || B == 0) return 0;
@@ -665,12 +701,12 @@ int launch_fixup(const float* src, const int* pieces, const int* piece_ptr,
   if (B == 1)
     seg_fixup_kernel<1, DIFFS><<<blocks, threads, 0, s>>>(
         src, pieces, piece_ptr, sids, out_ids, n_sids, C, L, Pp, R, NS, B,
-        out);
+        out, to_y);
   else
     seg_fixup_kernel<RHS_CHUNK, DIFFS>
         <<<dim3(blocks, (B + RHS_CHUNK - 1) / RHS_CHUNK), threads, 0, s>>>(
             src, pieces, piece_ptr, sids, out_ids, n_sids, C, L, Pp, R, NS,
-            B, out);
+            B, out, to_y);
   return (int)cudaGetLastError();
 }
 
@@ -681,7 +717,20 @@ RT_API int rt_seg_fixup(const float* psum, const int* pieces,
                         const int* out_ids, int n_sids, int C, int L, int Pp,
                         int R, int NS, int B, float* out, void* stream) {
   return launch_fixup<false>(psum, pieces, piece_ptr, sids, out_ids, n_sids,
-                             C, L, Pp, R, NS, B, out, (cudaStream_t)stream);
+                             C, L, Pp, R, NS, B, out, false,
+                             (cudaStream_t)stream);
+}
+
+// The split family's fix-up and combine in one launch: seg_fixup_kernel
+// over psum with `to_y`, each row's runs summed in split order straight
+// into y (S, B, R) at the launched shards' own rows.
+RT_API int rt_split_fixup(const float* psum, const int* pieces,
+                          const int* piece_ptr, const int* sids, int n_sids,
+                          int C, int L, int Pp, int R, int NS, int B,
+                          float* out, void* stream) {
+  return launch_fixup<false>(psum, pieces, piece_ptr, sids, sids, n_sids, C,
+                             L, Pp, R, NS, B, out, true,
+                             (cudaStream_t)stream);
 }
 
 RT_API int rt_seg_piece_sums(const float* vals, const int* cols,
@@ -713,5 +762,5 @@ RT_API int rt_seg_piece_fixup(const float* d, const int* piece_ptr,
                               const int* sids, int n_sids, int Pp, int R,
                               int B, float* out, void* stream) {
   return launch_fixup<true>(d, nullptr, piece_ptr, sids, sids, n_sids, 0, 0,
-                            Pp, R, 1, B, out, (cudaStream_t)stream);
+                            Pp, R, 1, B, out, false, (cudaStream_t)stream);
 }

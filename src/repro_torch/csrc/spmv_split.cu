@@ -6,7 +6,10 @@
 // (_split_combine_kernel, pallas_call at :84).  Between them the carry
 // fix-up runs as seg_fixup with num_splits = NS (spmv_seg.cu), on the
 // reference's device path (src/repro/kernels/ops.py:339-343) as on its
-// host op split_spmv (ops.py:310-315, the jnp _split_fixup :257).
+// host op split_spmv (ops.py:310-315, the jnp _split_fixup :257).  The
+// port's executor and split_spmv run neither that fix-up nor this combine:
+// split_fixup (spmv_seg.cu) sums each row's runs in split order straight
+// into y, bitwise the pair, with no (n, B, NS, R) partials in between.
 //
 // split_psum:    psum[b, s, c, l] = sum_{j <= l} vals[s, c, j] * x[b, cols[s, c, j]]
 // split_combine: y[s, b, r] = sum_{t < NS} part[k, b, t, r]   (t in split order)

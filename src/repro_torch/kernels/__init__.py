@@ -4,7 +4,8 @@ per-format kernel API of ``repro.kernels`` on top of them.
 
 * ``spmv_ell``   — padded-ELL SpMV with the HYB overflow tail fused;
 * ``spmv_seg``   — per-chunk prefix sums and the carry fix-up;
-* ``spmv_split`` — stage 1 over the split slab and the split combine;
+* ``spmv_split`` — stage 1 over the split slab, the split combine, and
+  the fix-up and combine fused (``split_fixup``, the split paths' own);
 * ``spmv_tile``  — the tile walks (flat device operands, and one
   TileMatrix addressed by block column);
 * ``ref``        — the PyTorch oracles and the plain versions;

@@ -27,7 +27,8 @@ __all__ = ["KERNELS", "launch_counts", "reset_launch_counts", "lib",
 
 #: Every kernel the library holds, by wrapper name.
 KERNELS = ("ell_spmv", "seg_psum", "seg_fixup", "split_combine",
-           "tile_contrib", "split_psum", "tile_walk_spmv", "seg_piece_sums")
+           "tile_contrib", "split_psum", "tile_walk_spmv", "seg_piece_sums",
+           "split_fixup")
 
 launch_counts = {name: 0 for name in KERNELS}
 
@@ -49,6 +50,7 @@ _SIGNATURES = {
     "rt_seg_piece_fixup": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
     "rt_split_psum": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
     "rt_split_combine": (_P, _P, _I, _I, _I, _I, _P, _P),
+    "rt_split_fixup": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "rt_tile_spmv": (_P, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _I,
                      _I, _P, _P),
     "rt_tile_walk_spmv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),

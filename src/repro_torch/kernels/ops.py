@@ -35,8 +35,8 @@ from ..core.spmv import _warn_deprecated
 from .ref import bell_spmm_ref, bell_spmv_ref, ell_spmv_ref, seg_spmv_ref, \
     split_spmv_ref, tile_flat_spmv_ref, tile_spmv_ref
 from .spmv_ell import ell_spmv as _ell_kernel
-from .spmv_seg import seg_fixup, seg_piece_fixup, seg_piece_sums, seg_psum
-from .spmv_split import split_combine, split_psum
+from .spmv_seg import seg_piece_fixup, seg_piece_sums, seg_psum
+from .spmv_split import split_fixup, split_psum
 from .spmv_tile import tile_contrib, tile_walk_spmv
 
 __all__ = ["SEG_CHUNK", "resolve_device", "hyb_from_csr", "seg_from_csr",
@@ -312,7 +312,8 @@ def seg_spmv(seg: "SegMatrix | tuple", x, *, num_rows: int | None = None,
 def split_spmv(spl: "SplitMatrix | tuple", x, *,
                num_rows: int | None = None, device="cuda"):
     """Split-nnz two-stage SpMV: ``split_psum`` over the (NS, Cs, L) slab,
-    the per-split carry fix-up, then ``split_combine``.  ``spl`` is a
+    then the per-split carry fix-up and combine in one launch
+    (``split_fixup``).  ``spl`` is a
     :class:`SplitMatrix` or the tuple ``(vals, cols, rows, piece_split,
     piece_chunk, piece_lo, piece_hi, piece_row)`` (then ``num_rows`` is
     required)."""
@@ -342,8 +343,9 @@ def split_flat_spmv(vals, cols, rows, pieces, x, *, num_rows: int,
                     num_splits: int, device="cuda"):
     """Split SpMV over the flattened (NS*Cs, L) slab and its (P, 5) piece
     table ``[flat_chunk, lo, hi, row, split]`` (padded rows
-    ``[0, 1, 0, 0, 0]`` add nothing): ``seg_psum``, the per-split fix-up
-    and the split combine.  ``rows`` is the oracle's operand only."""
+    ``[0, 1, 0, 0, 0]`` add nothing): ``seg_psum``, then the per-split
+    fix-up and the split combine in one launch.  ``rows`` is the oracle's
+    operand only."""
     dev = resolve_device(device)
     vals, cols = _on(dev, vals), _idx(dev, cols)
     pieces = _idx(dev, pieces).reshape(-1, 5)
@@ -444,17 +446,12 @@ def ell_stacked(data, cols, x, sids, *, ell_len=None, out=None):
 
 def _split_fixup_combine(psum, pieces, piece_ptr, sids, num_splits: int,
                          out):
-    """Split carry fix-up into per-split partials (n, B, NS, R), then the
-    split combine into ``out`` (S, B, R)."""
-    n, B = psum.shape[:2]
-    R = piece_ptr.shape[1] - 1
-    part = torch.empty((n, B, num_splits, R), dtype=torch.float32,
-                       device=psum.device)
-    pos = torch.arange(n, dtype=torch.int32, device=psum.device)
-    seg_fixup(psum, pieces, piece_ptr, sids, pos, num_splits=num_splits,
-              out=part)
-    out = _out(out, psum, piece_ptr.shape[0], B, R)
-    return split_combine(part, sids, out=out)
+    """The split carry fix-up and combine in one launch: each row's runs
+    summed in split order into ``out`` (S, B, R), no per-split partials."""
+    out = _out(out, psum, piece_ptr.shape[0], psum.shape[1],
+               piece_ptr.shape[1] - 1)
+    return split_fixup(psum, pieces, piece_ptr, sids, num_splits=num_splits,
+                       out=out)
 
 
 def _chunk_ranges(pieces, piece_ptr, num_chunks: int):
@@ -484,21 +481,18 @@ def seg_stacked(vals, cols, pieces, piece_ptr, x, sids, *, chunk_ptr=None,
 
 def split_stacked(vals, cols, pieces, piece_ptr, x, sids, *,
                   num_splits: int, out=None):
-    """Split SpMV over the flattened (NS*Cs, L) slab: seg_psum, the
-    per-split fix-up, then the split combine."""
+    """Split SpMV over the flattened (NS*Cs, L) slab: seg_psum, then the
+    per-split fix-up and the split combine in one launch."""
     psum = seg_psum(vals, cols, x, sids)
     return _split_fixup_combine(psum, pieces, piece_ptr, sids, num_splits,
                                 out)
 
 
-def split_scratch_bytes(vals, piece_ptr, n: int, B: int,
-                        num_splits: int) -> int:
+def split_scratch_bytes(vals, n: int, B: int) -> int:
     """Bytes of device scratch one :func:`split_stacked` call over ``n``
-    shards and B columns allocates: seg_psum's (n, B, C, L) running sums
-    and the (n, B, NS, R) per-split partials, float32."""
-    C, L = vals.shape[1], vals.shape[2]
-    R = piece_ptr.shape[1] - 1
-    return 4 * n * B * (C * L + num_splits * R)
+    shards and B columns allocates: seg_psum's (n, B, C, L) running sums,
+    float32 (the fix-up writes y)."""
+    return 4 * n * B * vals.shape[1] * vals.shape[2]
 
 
 def tile_stacked(data, xcol, brow, tile_ptr, x, sids, *, rb_used=None,

@@ -1,9 +1,14 @@
 """Split-nnz SpMV: stage 1's prefix sums over the split slab and stage
-2's split-axis combine (``csrc/spmv_split.cu``).
+2's split-axis combine (``csrc/spmv_split.cu``), and the two fused after
+the fix-up (:func:`split_fixup`, ``csrc/spmv_seg.cu``).
 
 Counterpart of ``repro.kernels.spmv_split.split_psum`` and
 ``split_combine``.  Between them runs the carry fix-up,
 :func:`~repro_torch.kernels.spmv_seg.seg_fixup` with ``num_splits=NS``.
+The port's split paths (the executor, ``ops.split_spmv``) run neither
+that fix-up nor :func:`split_combine`: :func:`split_fixup` is
+``seg_fixup``'s kernel writing y, each row's runs folded in split order
+as it meets them, bitwise the pair with no (n, B, NS, R) partials.
 The executor's split shards take stage 1 from
 :func:`~repro_torch.kernels.spmv_seg.seg_psum` on their flattened slab,
 as the reference's device path does; the host op
@@ -14,6 +19,8 @@ bitwise.
 
     psum[b, s, c, l] = sum_{j <= l} vals[s, c, j] * x[b, cols[s, c, j]]
     y[sids[k], b, r] = sum_t part[k, b, t, r]     (t = 0 .. NS-1, in order)
+    split_fixup: the same y, the sum over the splits t that row r has
+                 pieces in, each run summed in piece order from 0
 """
 from __future__ import annotations
 
@@ -22,7 +29,7 @@ import torch
 from . import _lib
 
 __all__ = ["split_psum", "split_psum_plain", "split_combine",
-           "split_combine_plain"]
+           "split_combine_plain", "split_fixup", "split_fixup_plain"]
 
 
 def split_psum_plain(vals, cols, x, out):
@@ -86,4 +93,55 @@ def split_combine(part, sids, *, out):
         return out
     _lib.call("split_combine", "rt_split_combine", part.device,
               part.data_ptr(), sids.data_ptr(), n, NS, R, B, out.data_ptr())
+    return out
+
+
+def split_fixup_plain(psum, pieces, piece_ptr, sids, num_splits, out):
+    """Each run of a row's pieces in one split summed in piece order from
+    0, then the row's runs in split order from 0 (``index_add_`` adds in
+    index order); a row without pieces gets 0."""
+    R = piece_ptr.shape[1] - 1
+    for k, sid in enumerate(sids.tolist()):
+        n = int(piece_ptr[sid, R])
+        chunk, lo, hi, row, split = pieces[sid, :n].long().unbind(1)
+        if num_splits == 1:
+            split = torch.zeros_like(split)
+        ps = psum[k]                                            # (B, C, L)
+        zero = torch.zeros((), dtype=ps.dtype, device=ps.device)
+        h = ps[:, chunk, hi]
+        d = torch.where(lo > 0, h - ps[:, chunk, (lo - 1).clamp(min=0)], h)
+        d = torch.where(lo > hi, zero, d)
+        new = torch.ones(n, dtype=torch.bool, device=ps.device)
+        new[1:] = (row[1:] != row[:-1]) | (split[1:] != split[:-1])
+        runs = torch.zeros((ps.shape[0], int(new.sum())), dtype=ps.dtype,
+                           device=ps.device)
+        runs.index_add_(1, torch.cumsum(new, 0) - 1, d)
+        acc = torch.zeros((ps.shape[0], R), dtype=ps.dtype, device=ps.device)
+        out[sid] = acc.index_add_(1, row[new], runs)
+    return out
+
+
+def split_fixup(psum, pieces, piece_ptr, sids, *, num_splits: int, out):
+    """The split family's carry fix-up and combine in one launch: each
+    row's runs summed in split order into ``out`` (S, B, R), every row of
+    the listed shards; bitwise ``seg_fixup(..., num_splits=NS)`` into
+    partials, then :func:`split_combine`.  Counted as ``split_fixup``."""
+    n, B, C, L = psum.shape
+    S, Pp, _ = pieces.shape
+    R = piece_ptr.shape[1] - 1
+    if psum.device.type == "cpu":
+        return split_fixup_plain(psum, pieces, piece_ptr, sids, num_splits,
+                                 out)
+    f32, i32 = torch.float32, torch.int32
+    _lib.check(psum.device, psum=(psum, f32, 4), pieces=(pieces, i32, 3),
+               piece_ptr=(piece_ptr, i32, 2), sids=(sids, i32, 1),
+               out=(out, f32, 3))
+    if pieces.shape[2] != 5 or piece_ptr.shape[0] != S \
+            or sids.numel() != n or out.shape[1:] != (B, R):
+        raise ValueError("split_fixup: operand shapes disagree")
+    if n == 0 or B == 0:
+        return out
+    _lib.call("split_fixup", "rt_split_fixup", psum.device, psum.data_ptr(),
+              pieces.data_ptr(), piece_ptr.data_ptr(), sids.data_ptr(), n, C,
+              L, Pp, R, num_splits, B, out.data_ptr())
     return out

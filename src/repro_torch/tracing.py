@@ -31,7 +31,7 @@ the per-call ``spmv.call`` with the counters ``spmv.calls`` and
 done, so the device waited for them); and, in an executor with split
 shards, the split family's per-call counters, fixed per x shape and
 counted at graph replays too: ``split.scratch_bytes`` (the bytes of its
-running sums and per-split partials, both passes), ``split.nnz``,
+running sums, both passes; its fix-up writes y), ``split.nnz``,
 ``split.rows``, ``split.x_elems`` and ``split.y_elems`` (its shards'
 nonzeros and rows, the distinct x elements they read and the y elements
 they write).

@@ -22,6 +22,8 @@ from repro_torch.data import matrices as mats
 from repro_torch.kernels import _lib, ops, spmv_ell, spmv_seg, spmv_split, \
     spmv_tile
 
+from test_torch_split_fixup import split_fixup_case
+
 pytestmark = pytest.mark.cuda
 
 
@@ -409,6 +411,104 @@ def test_seg_fixup_on_card_equals_plain(device, ns, B):
         assert torch.equal(one[o][:, 0], got[o][:, b])
 
 
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _partials_path(psum, pieces, piece_ptr, sids, num_splits, out):
+    """The split family's fix-up and combine as two card launches:
+    ``seg_fixup`` into (n, B, NS, R) partials, then ``split_combine``."""
+    n, B = psum.shape[:2]
+    part = torch.empty((n, B, num_splits, piece_ptr.shape[1] - 1),
+                       device=psum.device)
+    spmv_seg.seg_fixup(psum, pieces, piece_ptr, sids,
+                       torch.arange(n, dtype=torch.int32, device=psum.device),
+                       num_splits=num_splits, out=part)
+    return spmv_split.split_combine(part, sids, out=out)
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 11])
+@pytest.mark.parametrize("ns", [1, 7, 64])
+def test_split_fixup_on_card_is_bitwise_the_pair(device, ns, B):
+    # one launch, bitwise its plain version on CPU copies and the partials
+    # path on the card; out starts as NaN, so a row it does not write
+    # shows; reruns and single columns bitwise
+    psum, pcs, ptr, sids = split_fixup_case(ns, B)
+    o, R = sids.long(), ptr.shape[1] - 1
+    want = spmv_split.split_fixup_plain(psum, pcs, ptr, sids, ns, torch.full(
+        (3, B, R), float("nan")))[o]
+    args = [t.to(device) for t in (psum, pcs, ptr, sids)]
+
+    def nan_y(b):
+        return torch.full((3, b, R), float("nan"), device=device)
+
+    def fused(ps):
+        return spmv_split.split_fixup(ps, *args[1:], num_splits=ns,
+                                      out=nan_y(ps.shape[1]))
+    _lib.reset_launch_counts()
+    got = fused(args[0])
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _lib.launch_counts.items() if v} == {
+        "split_fixup": 1}
+    assert torch.equal(_bits(got.cpu()[o]), _bits(want))
+    assert got[1].isnan().all()
+    pair = _partials_path(*args, ns, nan_y(B))
+    assert torch.equal(_bits(got[o]), _bits(pair[o]))
+    assert torch.equal(_bits(fused(args[0])[o]), _bits(got[o]))
+    for b in {0, B // 2, B - 1}:
+        one = fused(args[0][:, b:b + 1].contiguous())
+        assert torch.equal(_bits(one[o][:, 0]), _bits(got[o][:, b]))
+
+
+def _tail_split_program():
+    A = mats.powerlaw_tail(4096, 4096 * 16, n_monster=4, seed=0)
+    return A, P.lower(A, SpmvPlan(num_shards=4, kernel="split"))
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_split_fixup_on_powerlaw_tail_is_bitwise_the_pair(device, B):
+    # the executor's own tables and psum, both passes (NS 1 and 64)
+    A, prog = _tail_split_program()
+    run = P.make_program_spmv_fn(prog, device=device)
+    T, sids = run.operands, run.families["split"]
+    s, R = sids.long(), run.rows_out
+    x = torch.from_numpy(prog.x_to_device(_x(A.ncols, B))).to(device)
+    for pre, xbuf in zip(("loc_", "rem_"), run.buffers(x)):
+        ns = run.num_splits[pre]
+        psum = spmv_seg.seg_psum(T[pre + "seg_vals"], T[pre + "seg_cols"],
+                                 xbuf, sids)
+        a = (psum, T[pre + "seg_pieces"], T[pre + "piece_ptr"], sids)
+        got = spmv_split.split_fixup(*a, num_splits=ns, out=torch.full(
+            (len(s), B, R), float("nan"), device=device))
+        want = _partials_path(*a, ns, torch.full((len(s), B, R),
+                                                 float("nan"), device=device))
+        assert not got[s].isnan().any()
+        assert torch.equal(_bits(got[s]), _bits(want[s]))
+    assert run.num_splits["rem_"] > 1
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_graphed_split_executor_is_bitwise_the_partials_path(device,
+                                                             monkeypatch, B):
+    # graph replays of the fused path against the eager executor run
+    # through seg_fixup into partials and split_combine, three x each
+    A, prog = _tail_split_program()
+    graphed = P.make_program_spmv_fn(prog, device=device, graphs=True)
+    rng = np.random.default_rng(11)
+    shape = (A.ncols,) if B == 1 else (A.ncols, B)
+    xs = [_on_card(prog, rng.standard_normal(shape), device)
+          for _ in range(3)]
+    got = [graphed(x).clone() for x in xs]
+    monkeypatch.setattr(ops, "_split_fixup_combine", _partials_path)
+    eager = P.make_program_spmv_fn(prog, device=device)
+    _lib.reset_launch_counts()
+    want = [eager(x) for x in xs]
+    torch.cuda.synchronize()
+    assert _lib.launch_counts["split_combine"] == 2 * len(xs)
+    assert _lib.launch_counts["split_fixup"] == 0
+    assert all(torch.equal(_bits(g), _bits(w)) for g, w in zip(got, want))
+
+
 @pytest.mark.parametrize("L", [32, 128, 512, 1024])
 def test_seg_psum_on_card(device, L):
     # two shards (the second a sign-flipped copy) read in reverse order,
@@ -486,7 +586,9 @@ def test_seg_piece_sums_equal_the_two_kernel_path(device, name, B):
 @pytest.mark.parametrize("kernels", ["seg", "split", "seg+split"])
 def test_each_family_launches_its_own_kernels(device, kernels):
     # the seg family: seg_piece_sums and the fix-up, never seg_psum; the
-    # split family: seg_psum, seg_fixup and split_combine
+    # split family: seg_psum and the fused fix-up and combine, one launch
+    # a pass, never the partials path (seg_fixup's NS outputs and
+    # split_combine)
     A = mats.powerlaw_tail(4096, 4096 * 16, n_monster=4, seed=0)
     fams = kernels.split("+")
     prog = P.lower(A, SpmvPlan(num_shards=4, shard_kernels=tuple(
@@ -501,7 +603,8 @@ def test_each_family_launches_its_own_kernels(device, kernels):
     if "seg" in fams:
         want |= {"seg_piece_sums", "seg_fixup"}
     if "split" in fams:
-        want |= {"seg_psum", "seg_fixup", "split_combine"}
+        want |= {"seg_psum", "split_fixup"}
+        assert _lib.launch_counts["split_fixup"] == 2
     assert launched == want
     np.testing.assert_allclose(
         P.gather_b(prog, y), csr_matvec(A, _x(A.ncols, 1)[:, 0]),

@@ -113,6 +113,9 @@ WRAPPERS = {
     "seg_piece_sums": lambda: spmv_seg.seg_piece_sums(
         _meta(S, C, L), _i32(S, C, L), _meta(1, B, 16), _i32(S, 5, 5),
         _i32(S, C + 1), _i32(S)),
+    "split_fixup": lambda: spmv_split.split_fixup(
+        _meta(S, B, C, L), _i32(S, 5, 5), _i32(S, R + 1), _i32(S),
+        num_splits=2, out=_meta(S, B, R)),
 }
 #: Wrappers that launch a second kernel of one counted name.
 MORE_WRAPPERS = {

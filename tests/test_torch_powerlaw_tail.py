@@ -119,19 +119,18 @@ def test_the_frozen_generator_is_bitwise_the_programs(seed):
 
 @pytest.mark.parametrize("B", [1, 2])
 def test_split_counters_are_the_hand_counts(matrix, prog, B):
-    """A recorded call adds the split family's psum (n, B, C, L) and
-    partials (n, B, NS, R) in both passes, float32, and its four shards'
-    nonzeros, rows, x read (every column: the dense rows hold them all)
-    and y written."""
+    """A recorded call adds the split family's psum (n, B, C, L) in both
+    passes, float32 (its fix-up writes y: no per-split partials), and its
+    four shards' nonzeros, rows, x read (every column: the dense rows hold
+    them all) and y written."""
     ops = program._device_operands(prog)
     run = program.make_program_spmv_fn(prog, device="cpu")
     _, xs = _x(prog, B)
     tracing.enable()
     run(xs)
-    n, R, L = 4, ops["R"], ops["rem_seg_vals"].shape[2]
+    n, L = 4, ops["rem_seg_vals"].shape[2]
     assert ops["NS_rem"] == 64
-    scratch = sum(4 * n * B * (ops[p + "seg_vals"].shape[1] * L
-                               + ops["NS_" + p[:3]] * R)
+    scratch = sum(4 * n * B * ops[p + "seg_vals"].shape[1] * L
                   for p in ("loc_", "rem_"))
     split = [st for st in prog.stages if st.kernel == "split"]
     r0, r1 = split[0].row_offset, split[-1].row_offset + split[-1].rows
