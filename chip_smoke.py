@@ -315,7 +315,7 @@ def family_replays(torch, run, pre, x, fam, sids):
     from repro_torch.kernels import spmv_ell, spmv_seg, spmv_split, spmv_tile
 
     T, R = run.operands, run.rows_out
-    S = T["kid"].numel()
+    S = run.shards[1] - run.shards[0]
     B = x.shape[1]
     n = sids.numel()
     frac = n / S

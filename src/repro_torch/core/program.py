@@ -85,30 +85,21 @@ class ShardStage:
     tile: TileMatrix | None = None
 
 
-def _shard_max_row_nnz(A: CSRMatrix, part: Partition, p: int) -> int:
-    r0, r1 = int(part.starts[p]), int(part.starts[p + 1])
-    if r1 <= r0:
-        return 0
-    return int((A.row_ptr[r0 + 1: r1 + 1] - A.row_ptr[r0: r1]).max())
-
-
-def _resolved_split_count(A: CSRMatrix, part: Partition, p: int,
-                          requested: int) -> int:
-    """The split count shard p lowers with: the request (or the
-    :func:`split_meta` policy when it is 0), clamped to the chunk count."""
-    r0, r1 = int(part.starts[p]), int(part.starts[p + 1])
-    nnz_p = int(A.row_ptr[r1] - A.row_ptr[r0])
-    L = ((kops.SEG_CHUNK + ELL_LANE - 1) // ELL_LANE) * ELL_LANE
-    C = max(-(-nnz_p // L), 1)
+def _split_count(sub: CSRMatrix, requested: int) -> int:
+    """The split count a shard's rows ``sub`` lower with: the request (or
+    the :func:`split_meta` policy when it is 0), clamped to [1, their
+    chunk count]."""
     ns = requested if requested > 0 else \
-        split_meta(nnz_p, _shard_max_row_nnz(A, part, p))
+        split_meta(sub.nnz, int(csr_row_nnz(sub).max(initial=0)))
+    C = max(-(-sub.nnz // _round_up(kops.SEG_CHUNK, ELL_LANE)), 1)
     return max(1, min(int(ns), C))
 
 
-def _build_stage(A: CSRMatrix, part: Partition, p: int,
-                 kernel: str, split_count: int = 0) -> ShardStage:
-    r0, r1 = int(part.starts[p]), int(part.starts[p + 1])
-    sub = part.shard_csr(A, p)
+def _stage_from_csr(sub: CSRMatrix, kernel: str, num_splits: int,
+                    shard: int, row_offset: int) -> ShardStage:
+    """Lower shard ``shard``'s rows ``sub`` (all its rows, or one pass's
+    slice with the other rows emptied) into ``kernel``'s family; a split
+    stage takes :func:`_split_count` of ``num_splits``."""
     ell = seg = split = tile = None
     if kernel == "ell":
         ell = csr_to_ell(sub)
@@ -117,15 +108,21 @@ def _build_stage(A: CSRMatrix, part: Partition, p: int,
     elif kernel == "seg":
         seg = kops.seg_from_csr(sub)
     elif kernel == "split":
-        ns = _resolved_split_count(A, part, p, split_count)
-        split = kops.split_from_csr(sub, ns)
+        split = kops.split_from_csr(sub, _split_count(sub, num_splits))
     elif kernel == "tile":
         tile = kops.tile_from_csr(sub)
     else:
         raise ValueError(f"unknown shard kernel {kernel!r}; expected one of "
                          f"{PROGRAM_KERNELS}")
-    return ShardStage(shard=p, kernel=kernel, rows=r1 - r0, row_offset=r0,
-                      nnz=sub.nnz, ell=ell, seg=seg, split=split, tile=tile)
+    return ShardStage(shard=shard, kernel=kernel, rows=sub.nrows,
+                      row_offset=row_offset, nnz=sub.nnz, ell=ell, seg=seg,
+                      split=split, tile=tile)
+
+
+def _build_stage(A: CSRMatrix, part: Partition, p: int,
+                 kernel: str, split_count: int = 0) -> ShardStage:
+    return _stage_from_csr(part.shard_csr(A, p), kernel, split_count, p,
+                           int(part.starts[p]))
 
 
 @dataclasses.dataclass
@@ -357,8 +354,8 @@ def relower(program: SpmvProgram, new_plan: SpmvPlan) -> SpmvProgram:
         if new_k[p] != "split":
             return True
         # a split request that clamps to the same effective NS shares too
-        want = _resolved_split_count(program.matrix, program.partition, p,
-                                     new_sc[p])
+        want = _split_count(program.partition.shard_csr(program.matrix, p),
+                            new_sc[p])
         return program.stages[p].split.num_splits == want
 
     stages = tuple(
@@ -541,30 +538,6 @@ def _row_masked_csr(sub: CSRMatrix, keep: np.ndarray) -> CSRMatrix:
                      col_index=sub.col_index[m], row_ptr=row_ptr)
 
 
-def _masked_stage(sub: CSRMatrix, keep: np.ndarray,
-                  st: ShardStage) -> ShardStage:
-    """Lower one row slice (local or remote) of a shard into the same
-    kernel family as its full stage."""
-    m = _row_masked_csr(sub, keep)
-    ell = seg = split = tile = None
-    if st.kernel == "ell":
-        ell = csr_to_ell(m)
-    elif st.kernel == "hyb":
-        ell = kops.hyb_from_csr(m)
-    elif st.kernel == "seg":
-        seg = kops.seg_from_csr(m)
-    elif st.kernel == "tile":
-        tile = kops.tile_from_csr(m)
-    else:                                    # "split"
-        L = ((kops.SEG_CHUNK + ELL_LANE - 1) // ELL_LANE) * ELL_LANE
-        C = max(-(-m.nnz // L), 1)
-        ns = max(1, min(st.split.num_splits, C))
-        split = kops.split_from_csr(m, ns)
-    return ShardStage(shard=st.shard, kernel=st.kernel, rows=st.rows,
-                      row_offset=st.row_offset, nnz=m.nnz, ell=ell, seg=seg,
-                      split=split, tile=tile)
-
-
 def _row_ranges(sorted_ids: np.ndarray, n: int) -> np.ndarray:
     """(n+1,) int32 run starts of ids 0..n in a sorted id list."""
     return np.searchsorted(sorted_ids, np.arange(n + 1),
@@ -711,7 +684,8 @@ def _device_operands(program: SpmvProgram) -> dict:
     Every array is stacked over all S shards (first dimension S), also
     on a rank of a mesh: as the reference builds its global operands
     before ``shard_map`` shards them, each rank builds them whole on the
-    host and uploads only its block of shards.
+    host; the executor uploads only its block of shards of the arrays its
+    kernel families read (``_FAMILIES``).
     """
     cached = getattr(program, "_device_ops_cache", None)
     if cached is not None:
@@ -747,8 +721,11 @@ def _device_operands(program: SpmvProgram) -> dict:
         rr = flags[st.row_offset: st.row_offset + st.rows]
         row_remote[p, : st.rows] = rr
         sub = program.partition.shard_csr(program.matrix, p)
-        loc_stages.append(_masked_stage(sub, ~rr, st))
-        rem_stages.append(_masked_stage(sub, rr, st))
+        ns = st.split.num_splits if st.split is not None else 0
+        loc_stages.append(_stage_from_csr(_row_masked_csr(sub, ~rr),
+                                          st.kernel, ns, p, st.row_offset))
+        rem_stages.append(_stage_from_csr(_row_masked_csr(sub, rr),
+                                          st.kernel, ns, p, st.row_offset))
         per_row = csr_row_nnz(sub)
         loc_nnz.append(np.where(rr, 0, per_row))
         rem_nnz.append(np.where(rr, per_row, 0))
@@ -769,6 +746,32 @@ def _round_up(x: int, m: int) -> int:
 # --------------------------------------------------------------------------
 # device executor
 # --------------------------------------------------------------------------
+
+#: The executor's kernel families, by shard kernel: the operand keys a
+#: family's launch reads from a pass (without the pass's ``loc_``/``rem_``
+#: prefix), which are all the executor uploads for it, and the launch,
+#: ``launch(operands, x, sids, y, num_splits, rb_used)``, taking those
+#: operands in that order.  ``ell`` shards run ``hyb_stacked`` with an
+#: empty overflow.
+_Family = collections.namedtuple("_Family", "keys launch")
+_ELL = _Family(("ell_data", "ell_cols", "ovf_rows", "ovf_cols", "ovf_vals",
+                "ovf_ptr", "ell_len"),
+               lambda o, x, sids, y, ns, rb: kops.hyb_stacked(
+                   *o[:6], x, sids, ell_len=o[6], out=y))
+_FAMILIES = {
+    "ell": _ELL, "hyb": _ELL,
+    "seg": _Family(("seg_vals", "seg_cols", "seg_pieces", "piece_ptr",
+                    "seg_chunk_ptr"),
+                   lambda o, x, sids, y, ns, rb: kops.seg_stacked(
+                       *o[:4], x, sids, chunk_ptr=o[4], out=y)),
+    "split": _Family(("seg_vals", "seg_cols", "seg_pieces", "piece_ptr"),
+                     lambda o, x, sids, y, ns, rb: kops.split_stacked(
+                         *o, x, sids, num_splits=ns, out=y)),
+    "tile": _Family(("tile_data", "tile_xcol", "tile_brow", "tile_ptr"),
+                    lambda o, x, sids, y, ns, rb: kops.tile_stacked(
+                        *o, x, sids, rb_used=rb, out=y)),
+}
+
 
 def _exchange_index(program: SpmvProgram, ops: dict) -> np.ndarray:
     """(Sx, Lx) int64 positions into the flat (S * per) layout-order x that
@@ -939,7 +942,7 @@ def make_program_spmv_fn(program: SpmvProgram, mesh=None,
     On a distributed mesh (:mod:`repro_torch.launch.mesh`; every rank
     calls this, and every call of ``run``) rank r of the W along ``axis``
     holds the shards ``[r S/W, (r+1) S/W)`` on its own device: it uploads
-    only that block of every operand, ``run`` takes the global x_shards
+    only that block of its operands, ``run`` takes the global x_shards
     and returns this rank's (S/W, R[, B]) block, and the exchange is one
     collective on the axis's group (the halo's ``all_to_all_single``, or
     the all-gather of the shards), issued asynchronously so that with
@@ -962,7 +965,9 @@ def make_program_spmv_fn(program: SpmvProgram, mesh=None,
     are no-ops without graphs).  Launch counts (``_lib.launch_counts``)
     grow at the warm-up call and the capture, not at replays.
 
-    ``run.operands`` (the device operand tensors), ``run.families``
+    ``run.operands`` (the device operand tensors: ``row_remote`` and,
+    for each pass, the ``loc_``/``rem_`` operands the launches of the
+    block's kernel families read, and nothing else), ``run.families``
     (kernel -> int32 shard ids within the block), ``run.rb_used`` (per
     pass, the block rows the tile shards' tiles reach), ``run.shards``
     (the block's first and end shard) and ``run.buffers(x_shards)`` (the
@@ -997,12 +1002,15 @@ def _build_executor(program, mesh, axis, device, pipeline, graphs):
     lo, hi = block * n, (block + 1) * n
     kid = ops["kid"][lo:hi]
     with _upload(dev):
-        T = {k: torch.from_numpy(np.ascontiguousarray(v[lo:hi])).to(dev)
-             for k, v in ops.items() if isinstance(v, np.ndarray)}
         families = {name: torch.from_numpy(
                         np.flatnonzero(kid == i).astype(np.int32)).to(dev)
                     for i, name in enumerate(PROGRAM_KERNELS)
                     if (kid == i).any()}
+        read = dict.fromkeys(pre + k for pre in ("loc_", "rem_")
+                             for name in families
+                             for k in _FAMILIES[name].keys)
+        T = {k: torch.from_numpy(np.ascontiguousarray(ops[k][lo:hi])).to(dev)
+             for k in ["row_remote", *read]}
     if group is None:
         start_exchange = _index_exchange(program, ops, dev)
     elif any(e == "halo" for e in program.plan.resolved_shard_exchanges()):
@@ -1017,30 +1025,13 @@ def _build_executor(program, mesh, axis, device, pipeline, graphs):
     num_splits = {"loc_": ops["NS_loc"], "rem_": ops["NS_rem"]}
     counts = _split_counters(program, T, families.get("split"), lo)
 
-    def kernel_pass(pre: str, xbuf, num_splits: int):
+    def kernel_pass(pre: str, xbuf):
         y = torch.empty((n, xbuf.shape[1], R), dtype=torch.float32,
                         device=dev)
         for name, sids in families.items():
-            if name in ("ell", "hyb"):        # ell shards: empty ovf_ptr
-                kops.hyb_stacked(T[pre + "ell_data"], T[pre + "ell_cols"],
-                                 T[pre + "ovf_rows"], T[pre + "ovf_cols"],
-                                 T[pre + "ovf_vals"], T[pre + "ovf_ptr"],
-                                 xbuf, sids, ell_len=T[pre + "ell_len"],
-                                 out=y)
-            elif name == "seg":
-                kops.seg_stacked(T[pre + "seg_vals"], T[pre + "seg_cols"],
-                                 T[pre + "seg_pieces"], T[pre + "piece_ptr"],
-                                 xbuf, sids,
-                                 chunk_ptr=T[pre + "seg_chunk_ptr"], out=y)
-            elif name == "split":
-                kops.split_stacked(T[pre + "seg_vals"], T[pre + "seg_cols"],
-                                   T[pre + "seg_pieces"],
-                                   T[pre + "piece_ptr"], xbuf, sids,
-                                   num_splits=num_splits, out=y)
-            else:
-                kops.tile_stacked(T[pre + "tile_data"], T[pre + "tile_xcol"],
-                                  T[pre + "tile_brow"], T[pre + "tile_ptr"],
-                                  xbuf, sids, rb_used=rb_used[pre], out=y)
+            fam = _FAMILIES[name]
+            fam.launch([T[pre + k] for k in fam.keys], xbuf, sids, y,
+                       num_splits[pre], rb_used[pre])
         return y
 
     def local_buffer(x_shards):
@@ -1053,12 +1044,12 @@ def _build_executor(program, mesh, axis, device, pipeline, graphs):
         xb, batched = local_buffer(x_shards)
         finish = start_exchange(xb)
         if pipeline:
-            y_loc = kernel_pass("loc_", xb, ops["NS_loc"])
+            y_loc = kernel_pass("loc_", xb)
             xg = finish()
         else:
             xg = finish()
-            y_loc = kernel_pass("loc_", xb, ops["NS_loc"])
-        y_rem = kernel_pass("rem_", xg, ops["NS_rem"])
+            y_loc = kernel_pass("loc_", xb)
+        y_rem = kernel_pass("rem_", xg)
         y = torch.where(row_remote, y_rem, y_loc).permute(0, 2, 1)
         return (y if batched else y[..., 0]).contiguous()
 

@@ -66,6 +66,30 @@ def test_card_matches_plain_path(device, name):
     assert torch.equal(y[..., 0], y0)
 
 
+def test_executor_allocates_only_its_operands(device):
+    # powerlaw_tail.solve's plan on 2^16 rows: building the executor
+    # allocates run.operands, the shard ids of its families and the
+    # exchange's index, and nothing else (no ELL or tile slab, no seg_rows)
+    A = mats.powerlaw_tail(1 << 16, (1 << 16) * 16, n_monster=8, seed=0)
+    prog = P.lower(A, SpmvPlan(
+        num_shards=8, kernel="seg", distribution="nonzero", exchange="halo",
+        shard_kernels=("split",) * 4 + ("seg",) * 4,
+        split_counts=(64,) * 4 + (1,) * 4))
+    index = P._exchange_index(prog, P._device_operands(prog))
+    torch.cuda.synchronize(device)
+    before = torch.cuda.memory_stats(device)["requested_bytes.all.current"]
+    run = P.make_program_spmv_fn(prog, device=device)
+    torch.cuda.synchronize(device)
+    got = torch.cuda.memory_stats(device)["requested_bytes.all.current"] \
+        - before
+    assert set(run.families) == {"split", "seg"}
+    assert not any(k.endswith(("ell_data", "tile_data", "seg_rows"))
+                   for k in run.operands)
+    tensors = [*run.operands.values(), *run.families.values()]
+    assert got == sum(t.numel() * t.element_size() for t in tensors) \
+        + index.nbytes
+
+
 def _card_and_plain(kernel, plain, args, abs_args):
     """One launch of ``kernel`` on the card, counted, against its plain
     version on the same inputs (rtol = atol = 1e-5 on |A|.|x|)."""

@@ -14,9 +14,10 @@ each rank its own process), one ("model",) mesh over a world of 4, 2 and
   and gathered y at W = 4, 2 (two shards a rank) and 1, at B = 1 and 3,
   with ``pipeline`` on and off, on a halo, an all-gather, a mixed-exchange
   and a reordered plan;
-* per rank: the operands hold S/W shards, and the exchange sends
-  (S/W)·S·H·4·B bytes (halo) or (S/W)·per·4·B (all-gather), the y gather
-  (S/W)·R·4·B, counted on the collectives;
+* per rank: the operands hold S/W shards of what the block's kernel
+  families read, and the exchange sends (S/W)·S·H·4·B bytes (halo) or
+  (S/W)·per·4·B (all-gather), the y gather (S/W)·R·4·B, counted on the
+  collectives;
 * the errors (W not dividing S, a CUDA executor on a gloo group,
   ``graphs=True`` on a distributed mesh) and the legacy shims with the
   reference's positional mesh.
@@ -38,7 +39,7 @@ from repro.core.sparse_matrix import csr_matvec
 import repro_torch.core.program as t_program
 from repro_torch.core.spmv import SpmvPlan as TPlan
 from repro_torch.launch.mesh import Mesh
-from test_torch_program import TOL
+from test_torch_program import TOL, uploaded
 import torch_mesh_ranks as tr
 
 torch.set_num_threads(1)
@@ -254,18 +255,21 @@ def test_ranks_are_the_one_device_executor(worlds, W, key, B, pipeline):
 @pytest.mark.parametrize("key", list(EXEC))
 @pytest.mark.parametrize("W", WORLDS)
 def test_each_rank_holds_its_block_and_sends_its_share(worlds, W, key):
-    """Operands of S/W shards a rank; the exchange's all-to-all sends
-    (S/W)·S·H·4·B bytes when a shard reads a halo, else the all-gather
-    (S/W)·per·4·B; the y gather (S/W)·R·4·B."""
+    """Operands of S/W shards a rank, only those its block's kernel
+    families read; the exchange's all-to-all sends (S/W)·S·H·4·B bytes
+    when a shard reads a halo, else the all-gather (S/W)·per·4·B; the y
+    gather (S/W)·R·4·B."""
     A, prog = _program(EXEC[key])
     ops = t_program._device_operands(prog)
     per = prog.x_layout.padded_length() // S
     halo = "halo" in prog.plan.resolved_shard_exchanges()
     n = S // W
-    for r in worlds[W]:
+    for rank, r in enumerate(worlds[W]):
+        block = set(prog.shard_kernels()[rank * n: (rank + 1) * n])
         for (B, _), got in r[key].items():
             b = B or 1
             assert set(got["operand_rows"].values()) == {n}
+            assert set(got["operand_rows"]) == uploaded(block)
             want = {"all-to-all": n * S * ops["halo_H"] * 4 * b if halo
                     else 0,
                     "all-gather": 0 if halo else n * per * 4 * b}

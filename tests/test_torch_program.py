@@ -85,6 +85,66 @@ def test_per_shard_exchanges(exchanges):
                    shard_exchanges=exchanges * 2))
 
 
+#: The operands each kernel family's launch reads from a pass (without
+#: the pass's ``loc_``/``rem_`` prefix).
+READS = {
+    "ell": {"ell_data", "ell_cols", "ovf_rows", "ovf_cols", "ovf_vals",
+            "ovf_ptr", "ell_len"},
+    "seg": {"seg_vals", "seg_cols", "seg_pieces", "piece_ptr",
+            "seg_chunk_ptr"},
+    "split": {"seg_vals", "seg_cols", "seg_pieces", "piece_ptr"},
+    "tile": {"tile_data", "tile_xcol", "tile_brow", "tile_ptr"},
+}
+READS["hyb"] = READS["ell"]
+
+
+def uploaded(families) -> set:
+    """What an executor whose shards run ``families`` uploads:
+    ``row_remote`` and, per pass, what their launches read."""
+    return {"row_remote"} | {pre + k for pre in ("loc_", "rem_")
+                             for f in families for k in READS[f]}
+
+
+def _tail_8():
+    """``powerlaw_tail.solve``'s plan on 2^15 rows: split at NS 64 on the
+    shards with the dense rows (0-3), seg on 4-7."""
+    return r_mat.powerlaw_tail(1 << 15, (1 << 15) * 16, n_monster=8,
+                               seed=0), \
+        dict(num_shards=8, kernel="seg", distribution="nonzero",
+             exchange="halo", shard_kernels=("split",) * 4 + ("seg",) * 4,
+             split_counts=(64,) * 4 + (1,) * 4)
+
+
+UPLOAD_PLANS = {
+    "seg": lambda: (A_MIXED, dict(num_shards=4, kernel="seg")),
+    "powerlaw_tail": _tail_8,
+    "hyb": lambda: (A_MIXED, dict(num_shards=4, kernel="hyb")),
+    "tile": lambda: (A_MIXED, dict(num_shards=4, kernel="tile")),
+    "mixed": lambda: (r_mat.halo_spikes(512, 512 * 8, seed=3), dict(
+        num_shards=4, kernel="seg",
+        shard_kernels=("tile", "split", "hyb", "seg"),
+        shard_exchanges=("halo", "allgather", "halo", "allgather"))),
+}
+
+
+@pytest.mark.parametrize("name", list(UPLOAD_PLANS))
+def test_executor_uploads_only_what_its_launches_read(name):
+    """``run.operands`` is ``row_remote`` and the operands the launches of
+    the program's families read, each the host operand bitwise; y stays
+    the reference's, pipelined or not."""
+    A, fields = UPLOAD_PLANS[name]()
+    _check(A, fields)
+    tp = t_program.lower(_port(A), TPlan(**fields))
+    run = t_program.make_program_spmv_fn(tp, device="cpu")
+    assert set(run.families) == set(tp.shard_kernels())
+    assert set(run.operands) == uploaded(run.families)
+    ops = t_program._device_operands(tp)
+    for k, t in run.operands.items():
+        np.testing.assert_array_equal(t.numpy(), ops[k])
+    if name == "powerlaw_tail":
+        assert [st.split.num_splits for st in tp.stages[:4]] == [64] * 4
+
+
 @pytest.mark.parametrize("kernel", PLAN_KERNELS)
 @pytest.mark.parametrize("S", [1, 2, 4])
 def test_zero_nnz_shards(kernel, S):

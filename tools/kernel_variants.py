@@ -168,8 +168,8 @@ def contrib_cases(torch, dev, rng, phases):
             sets = [([T[pre + k] for k in ("tile_data", "tile_xcol",
                                            "tile_brow", "tile_ptr")],
                      xbuf, run.rb_used[pre],
-                     torch.empty((len(run.operands["kid"]), B, run.rows_out),
-                                 device=dev))
+                     torch.empty((run.shards[1] - run.shards[0], B,
+                                  run.rows_out), device=dev))
                     for pre, xbuf in zip(("loc_", "rem_"), bufs)]
 
             def launch(fn, sets=sets):
@@ -473,11 +473,12 @@ def seg_cases(torch, dev, rng, phases):
                     prog.x_to_device(x)).to(dev))
                 scan_sets, fixup_sets = [], []
                 for pre, xbuf in zip(("loc_", "rem_"), bufs):
-                    v, c, pcs, ptr = (T[pre + k] for k in (
-                        "seg_vals", "seg_cols", "seg_pieces", "piece_ptr"))
                     for fam in ("seg", "split"):
                         if fam not in run.families:
                             continue
+                        v, c, pcs, ptr = (T[pre + k] for k in (
+                            "seg_vals", "seg_cols", "seg_pieces",
+                            "piece_ptr"))
                         sids = run.families[fam]
                         n, R = sids.numel(), ptr.shape[1] - 1
                         psum = spmv_seg.seg_psum(v, c, xbuf, sids)
