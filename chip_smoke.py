@@ -207,6 +207,7 @@ REPLACES = {
     "tile_walk_spmv": "src/repro/kernels/spmv_tile.py:51",
     "split_fixup": "src/repro/kernels/ops.py:257 + "
                    "src/repro/kernels/spmv_split.py:77",
+    "gather_rows": "src/repro/core/program.py:889 (jnp.take, no kernel)",
 }
 SOURCE = {
     "ell_spmv": "src/repro_torch/csrc/spmv_ell.cu",
@@ -218,13 +219,14 @@ SOURCE = {
     "split_psum": "src/repro_torch/csrc/spmv_split.cu",
     "tile_walk_spmv": "src/repro_torch/csrc/spmv_tile.cu",
     "split_fixup": "src/repro_torch/csrc/spmv_seg.cu",
+    "gather_rows": "src/repro_torch/csrc/exchange.cu",
 }
 #: The phase whose numbers stand for each kernel in the summary line.
 HEADLINE = {"ell_spmv": "cop20k_A/ell", "seg_psum": "powerlaw_tail",
             "seg_fixup": "cop20k_A/seg", "split_combine": "powerlaw_tail",
             "tile_contrib": "blocked_band", "split_psum": "api/split64",
             "tile_walk_spmv": "api/tile", "seg_piece_sums": "cop20k_A/seg",
-            "split_fixup": "powerlaw_tail"}
+            "split_fixup": "powerlaw_tail", "gather_rows": "cop20k_A/seg"}
 #: Kernels no main path launches: the reference's counterparts that a
 #: fused kernel replaced there, checked and timed through their replays.
 REPLAYED_ONLY = {"split_combine": "the split family's fix-up writes y "
@@ -302,13 +304,41 @@ def replays(torch, run, xs):
     nothing; a piece is its whole 20-byte record, whose sectors the
     fix-up's reads of 3 or 4 of its ints cover), every gather (x, and the
     fix-up's psum) at 4 bytes per distinct position, and the output
-    (every (row, split) entry of the fix-up's)."""
+    (every (row, split) entry of the fix-up's).  The exchange's row gather
+    comes first (:func:`exchange_replay`)."""
     xb, xg = run.buffers(xs)
-    out = []
+    out = [exchange_replay(torch, run, xb)]
     for pre, x in (("loc_", xb), ("rem_", xg)):
         for fam, sids in run.families.items():
             out += family_replays(torch, run, pre, x, fam, sids)
     return out
+
+
+def exchange_replay(torch, run, xb) -> dict:
+    """The one-device exchange's ``gather_rows`` of the remote buffers from
+    the local ones ``xb``: the kernel, its plain version (advanced
+    indexing; the rows' bits, so exact), and the bytes: the int64 index,
+    each distinct source row once and every output row, B * 4 bytes a
+    row."""
+    from repro_torch.core import program as P
+    from repro_torch.kernels import exchange
+
+    prog = run.program
+    index = torch.from_numpy(P._exchange_index(
+        prog, P._device_operands(prog))).to(xb.device)
+    src = xb.reshape(-1, xb.shape[2])
+    B = src.shape[1]
+
+    def out(device=xb.device):
+        return torch.empty(tuple(index.shape) + (B,), device=device)
+    return dict(name="gather_rows", family="exchange", pass_="rem_",
+                kernel=lambda: exchange.gather_rows(src, index),
+                plain=lambda: exchange.gather_rows_plain(src, index, out()),
+                scale=None, exact=True, rows=None, library=None,
+                plain_timed=lambda: exchange.gather_rows_plain(src, index,
+                                                               out()),
+                bytes=8 * index.numel() + 4 * B * (
+                    index.numel() + int(index.unique().numel())), ops=0)
 
 
 def family_replays(torch, run, pre, x, fam, sids):
@@ -316,7 +346,7 @@ def family_replays(torch, run, pre, x, fam, sids):
 
     T, R = run.operands, run.rows_out
     S = run.shards[1] - run.shards[0]
-    B = x.shape[1]
+    B = x.shape[2]                                  # x is (Sx, Lx, B)
     n = sids.numel()
     frac = n / S
     shards = sids.long().tolist()
@@ -475,7 +505,7 @@ def piece_sums_replay(torch, vals, cols, x, pcs, cptr, sids) -> dict:
     and its difference, and ``sids``."""
     from repro_torch.kernels import spmv_seg
 
-    n, B = sids.numel(), x.shape[1]
+    n, B = sids.numel(), x.shape[2]
     C, L, Pp = vals.shape[1], vals.shape[2], pcs.shape[1]
     shards = sids.long().tolist()
     live = [cptr[s, 1:] > cptr[s, :-1] for s in shards]
@@ -928,7 +958,7 @@ def api_record(torch, label, wrapper, a, kw) -> dict:
         data, cols, orow, ocol, oval, optr, x, sids = a
         ell_len = kw.get("ell_len")
         S, R, W = data.shape
-        B = x.shape[1]
+        B = x.shape[2]
         m = int(optr[0, R])
         out = fresh((S, B, R))
         if ell_len is None:                 # every slot of the slab is real
@@ -950,7 +980,7 @@ def api_record(torch, label, wrapper, a, kw) -> dict:
             ops=2 * B * (n_slots + m))
     elif wrapper in ("seg_psum", "split_psum"):
         vals, cols, x = a[:3]
-        B = x.shape[-2]
+        B = x.shape[-1]                 # (1, n, B) or split_psum's (n, B)
         mod = spmv_seg if wrapper == "seg_psum" else spmv_split
         kernel, plain = getattr(mod, wrapper), getattr(mod, wrapper + "_plain")
         rest = a[3:]                    # seg_psum's sids
@@ -1000,7 +1030,7 @@ def api_record(torch, label, wrapper, a, kw) -> dict:
         data, tcols, tptr, x = a
         mask = kw.get("mask")
         T, bm, bn = data.shape
-        B, n = x.shape
+        n, B = x.shape
         out = fresh((B, (tptr.numel() - 1) * bm))
         if mask is None:
             lanes = int((n - tcols.unique().long() * bn).clamp(max=bn).sum())
@@ -1026,7 +1056,7 @@ def api_record(torch, label, wrapper, a, kw) -> dict:
     elif wrapper == "tile_contrib":
         data, xcol, brow, tptr, x, sids = a
         S, _, bm, bn = data.shape
-        B, R = x.shape[1], (tptr.shape[1] - 1) * bm
+        B, R = x.shape[2], (tptr.shape[1] - 1) * bm
         n_tiles = int(tptr[0, -1])          # the per-format API's one shard
         out = fresh((S, B, R))
         # NaN until the first call, the checked one, which must write every

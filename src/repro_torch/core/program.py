@@ -54,6 +54,7 @@ from .sparse_matrix import CSRMatrix, ELL_LANE, ELL_SUBLANE, EllMatrix, \
     SegMatrix, SplitMatrix, TileMatrix, csr_row_nnz, csr_to_ell
 from .spmv import PLAN_KERNELS, SpmvPlan
 from ..kernels import ops as kops
+from ..kernels.exchange import gather_rows
 from ..kernels.ops import resolve_device
 
 __all__ = ["ShardStage", "SpmvProgram", "lower", "relower",
@@ -852,8 +853,9 @@ def _upload(dev):
 
 
 def _index_exchange(program: SpmvProgram, ops: dict, dev):
-    """The one-device exchange: the remote pass's buffers by one index
-    gather from the flat layout-order x (:func:`_exchange_index`)."""
+    """The one-device exchange: the remote pass's buffers by one gather of
+    whole rows of the flat layout-order x (:func:`_exchange_index`), an
+    element's B columns a row."""
     S = program.plan.num_shards
     per = program.x_layout.padded_length() // S
     with tracing.span("executor.operands"):
@@ -862,9 +864,8 @@ def _index_exchange(program: SpmvProgram, ops: dict, dev):
         gidx = torch.from_numpy(index).to(dev)
 
     def start(xb):
-        def finish():
-            flat = xb.permute(1, 0, 2).reshape(xb.shape[1], S * per)
-            return flat[:, gidx].permute(1, 0, 2).contiguous()  # (Sx, B, Lx)
+        def finish():                                         # (Sx, Lx, B)
+            return gather_rows(xb.reshape(S * per, xb.shape[2]), gidx)
         return finish
     return start
 
@@ -889,36 +890,34 @@ def _halo_exchange(ops: dict, lo: int, hi: int, per: int, W: int, group,
         pack = torch.from_numpy(index).to(dev)               # (S, n, H)
 
     def start(xb):
-        B = xb.shape[1]
-        flat = xb.permute(1, 0, 2).reshape(B, n * per)
-        to_send = flat[:, pack].permute(1, 0, 2, 3).contiguous()  # (S,B,n,H)
-        recv = torch.empty_like(to_send)                  # (W * n, B, n, H)
+        B = xb.shape[2]
+        to_send = gather_rows(xb.reshape(n * per, B), pack)  # (S, n, H, B)
+        recv = torch.empty_like(to_send)                  # (W * n, n, H, B)
         work = dist.all_to_all_single(recv, to_send, group=group,
                                       async_op=True)
 
         def finish():
             work.wait()
-            got = recv.view(W, n, B, n, H).permute(1, 2, 0, 3, 4)
-            return torch.cat([xb, got.reshape(n, B, S * H)], dim=2)
+            got = recv.view(W, n, n * H, B).transpose(0, 1)  # by source rank
+            return torch.cat([xb, got.reshape(n, S * H, B)], dim=1)
         return finish
     return start
 
 
 def _gather_exchange(kind: str, S: int, per: int, group):
-    """The uniform all-gather: every rank's (S/W, B, per) block gathered
-    into the (S, B, per) shards, then laid out as the one global vector
-    (a reshape for ``block``, the transpose for ``cyclic``)."""
+    """The uniform all-gather: every rank's (S/W, per, B) block gathered
+    into the (S, per, B) shards, then laid out as the one global vector
+    (a view for ``block``, the transpose for ``cyclic``)."""
 
     def start(xb):
-        B = xb.shape[1]
-        xs = torch.empty((S, B, per), dtype=xb.dtype, device=xb.device)
+        B = xb.shape[2]
+        xs = torch.empty((S, per, B), dtype=xb.dtype, device=xb.device)
         work = _all_gather(xs, xb, group, async_op=True)
 
         def finish():
             work.wait()
-            g = xs.permute(1, 0, 2) if kind == "block" else \
-                xs.permute(1, 2, 0)
-            return g.reshape(1, B, S * per).contiguous()
+            g = xs if kind == "block" else xs.transpose(0, 1)
+            return g.reshape(1, S * per, B).contiguous()
         return finish
     return start
 
@@ -971,7 +970,9 @@ def make_program_spmv_fn(program: SpmvProgram, mesh=None,
     (kernel -> int32 shard ids within the block), ``run.rb_used`` (per
     pass, the block rows the tile shards' tiles reach), ``run.shards``
     (the block's first and end shard) and ``run.buffers(x_shards)`` (the
-    local and remote x buffers) let a caller replay single kernels.
+    local and remote x buffers, batch-minor: (S/W, per, B) and (Sx, Lx,
+    B), an element's B columns one row) let a caller replay single
+    kernels.
 
     The build records the span ``executor.build`` over
     ``executor.operands`` (the host operands and the exchange's index)
@@ -1026,7 +1027,7 @@ def _build_executor(program, mesh, axis, device, pipeline, graphs):
     counts = _split_counters(program, T, families.get("split"), lo)
 
     def kernel_pass(pre: str, xbuf):
-        y = torch.empty((n, xbuf.shape[1], R), dtype=torch.float32,
+        y = torch.empty((n, xbuf.shape[2], R), dtype=torch.float32,
                         device=dev)
         for name, sids in families.items():
             fam = _FAMILIES[name]
@@ -1038,7 +1039,7 @@ def _build_executor(program, mesh, axis, device, pipeline, graphs):
         _check_shards(x_shards, S, per)
         x = torch.as_tensor(x_shards[lo:hi], dtype=torch.float32, device=dev)
         xb = x if x.dim() == 3 else x[..., None]
-        return xb.permute(0, 2, 1).contiguous(), x.dim() == 3   # (n, B, per)
+        return xb.contiguous(), x.dim() == 3                   # (n, per, B)
 
     def eager(x_shards):
         xb, batched = local_buffer(x_shards)

@@ -4,7 +4,7 @@
 // pallas_call at :60), plus the jnp COO overflow scatter that followed it
 // on the device path (src/repro/core/program.py:863-867).
 //
-// y[s, b, r] = sum_{w < ell_len[s, r]} data[s, r, w] * x[s, b, cols[s, r, w]]
+// y[s, b, r] = sum_{w < ell_len[s, r]} data[s, r, w] * x[s, cols[s, r, w], b]
 //            + sum over r's overflow range of ovf_vals * x[ovf_cols]
 //
 // What bounds it on the H100: bytes.  Each real slot moves 8 bytes of
@@ -28,9 +28,11 @@
 // butterfly over the group then reduces the lane sums, and the group's
 // first lane adds the row's overflow entries in their stored (row-sorted)
 // order, each column in the order of the single-vector call (batched
-// columns equal it bitwise).  The overflow range comes from a host table
-// (ovf_ptr, (S, R+1)) built with searchsorted over the shard's real
-// overflow entries, so the unsorted stacking padding is never read.
+// columns equal it bitwise).  x is batch-minor, so a slot's columns are
+// one row of x (load_x_row: 16-byte loads where B % 4 == 0).  The
+// overflow range comes from a host table (ovf_ptr, (S, R+1)) built with
+// searchsorted over the shard's real overflow entries, so the unsorted
+// stacking padding is never read.
 // Padded slots (col 0 / value 0) are never read, so for finite x the
 // result equals the full-slot walk's up to the sign of a zero.
 #include "common.cuh"
@@ -51,7 +53,7 @@ __global__ void ell_spmv_kernel(const float* __restrict__ data,
                                 const float* __restrict__ x,
                                 long long x_stride,
                                 const int* __restrict__ sids, int n_sids,
-                                int R, int W, int O, int Lx, int B,
+                                int R, int W, int O, int B,
                                 float* __restrict__ y) {
   const int lane = threadIdx.x % WARP, sub = lane % G;
   const long long item = ((long long)blockIdx.x * THREADS + threadIdx.x) / G;
@@ -61,7 +63,8 @@ __global__ void ell_spmv_kernel(const float* __restrict__ data,
   const int k = (int)(item / R), r = (int)(item % R);
   const int b0 = blockIdx.y * NB, nb = min(NB, B - b0);
   const int sid = sids[k];
-  const float* xv = shard_x(x, x_stride, sid, b0, Lx);
+  const float* xv = shard_x(x, x_stride, sid, b0);
+  const bool vec = x_rows_vec(x, B);
   const long long row = (long long)sid * R + r;
   const int len = ell_len == nullptr ? W : ell_len[row];
   const float* d = data + row * W;
@@ -80,11 +83,13 @@ __global__ void ell_spmv_kernel(const float* __restrict__ data,
     }
 #pragma unroll
     for (int j = 0; j < K; ++j)
-      if (w0 + G * j < len)
+      if (w0 + G * j < len) {
+        float xr[NB];
+        load_x_row<NB>(x_row<NB>(xv, cv[j], B), nb, vec, xr);
 #pragma unroll
         for (int b = 0; b < NB; ++b)
-          if (b < nb)
-            acc[b] = fmaf(dv[j], xv[(long long)b * Lx + cv[j]], acc[b]);
+          if (b < nb) acc[b] = fmaf(dv[j], xr[b], acc[b]);
+      }
   }
 #pragma unroll
   for (int b = 0; b < NB; ++b) acc[b] = group_sum<G>(acc[b], group);
@@ -93,12 +98,11 @@ __global__ void ell_spmv_kernel(const float* __restrict__ data,
     const long long obase = (long long)sid * O;
     for (int o = ptr[r]; o < ptr[r + 1]; ++o) {
       const float v = ovf_vals[obase + o];
-      const int oc = ovf_cols[obase + o];
+      float xr[NB];
+      load_x_row<NB>(x_row<NB>(xv, ovf_cols[obase + o], B), nb, vec, xr);
 #pragma unroll
       for (int b = 0; b < NB; ++b)
-        if (b < nb)
-          acc[b] = __fadd_rn(acc[b],
-                             __fmul_rn(v, xv[(long long)b * Lx + oc]));
+        if (b < nb) acc[b] = __fadd_rn(acc[b], __fmul_rn(v, xr[b]));
     }
 #pragma unroll
     for (int b = 0; b < NB; ++b)
@@ -113,7 +117,7 @@ RT_API int rt_ell_spmv(const float* data, const int* cols, const int* ell_len,
                        const int* ovf_ptr, const int* ovf_cols,
                        const float* ovf_vals, const float* x,
                        long long x_stride, const int* sids, int n_sids, int R,
-                       int W, int O, int Lx, int B, float* y, void* stream) {
+                       int W, int O, int B, float* y, void* stream) {
   const long long rows = (long long)n_sids * R;
   if (rows == 0 || B == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -122,11 +126,11 @@ RT_API int rt_ell_spmv(const float* data, const int* cols, const int* ell_len,
   if (B == 1)
     ell_spmv_kernel<1><<<blocks, THREADS, 0, s>>>(
         data, cols, ell_len, ovf_ptr, ovf_cols, ovf_vals, x, x_stride, sids,
-        n_sids, R, W, O, Lx, B, y);
+        n_sids, R, W, O, B, y);
   else
     ell_spmv_kernel<RHS_CHUNK>
         <<<dim3(blocks, (B + RHS_CHUNK - 1) / RHS_CHUNK), THREADS, 0, s>>>(
             data, cols, ell_len, ovf_ptr, ovf_cols, ovf_vals, x, x_stride,
-            sids, n_sids, R, W, O, Lx, B, y);
+            sids, n_sids, R, W, O, B, y);
   return (int)cudaGetLastError();
 }

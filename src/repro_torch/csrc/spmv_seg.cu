@@ -5,7 +5,7 @@
 // device path (src/repro/kernels/ops.py _seg_fixup :158 and
 // _split_flat_fixup :275, which are jnp glue, not TPU kernels).
 //
-// seg_psum:  psum[k, b, c, l] = sum_{j <= l} vals[s, c, j] * x[s, b, cols[s, c, j]]
+// seg_psum:  psum[k, b, c, l] = sum_{j <= l} vals[s, c, j] * x[s, cols[s, c, j], b]
 // seg_fixup: out[o, b, t, r] = sum over r's pieces of split t of
 //            psum[k, b, chunk, hi] - psum[k, b, chunk, lo - 1]
 // seg_piece_sums: d[k, b, p] = psum[k, b, chunk, hi] - psum[k, b, chunk, lo - 1]
@@ -39,14 +39,18 @@
 // (neighbouring lanes on neighbouring addresses), gathers x for them and
 // scans its 4 products serially; a shuffle scan over the 32 lane totals
 // and the carry of the previous step (lane 31's last value) complete the
-// prefix sums, stored as one 16-byte store a lane.  The loads and gathers
-// of STEPS_AHEAD steps go out before the first of them is scanned, so a
-// 512-element chunk waits on one round of loads, not four.  A thread
-// keeps up to RHS_CHUNK columns, so one load of vals and cols feeds every
-// column of an (N, B) chunk.  Every add is an explicit round-to-nearest
-// intrinsic in a fixed order: deterministic, and column b of a batched
-// call equals the single-vector call bitwise.  A chunk of any length
-// L % 4 == 0 is walked this way (the carry spans the steps), and
+// prefix sums, stored as one 16-byte store a lane.  The loads of vals and
+// cols of STEPS_AHEAD steps go out before the first of them is scanned, so
+// a 512-element chunk waits on one round of them, not four; at B = 1 so do
+// the steps' x gathers.  A thread keeps up to RHS_CHUNK columns, so one
+// load of vals and cols feeds every column of an (N, B) chunk, and x being
+// batch-minor, an element's columns are one row of x: at B = 8 two 16-byte
+// loads of one sector, not 8 gathers into 8 planes.  A batched scan
+// gathers ROWS_AHEAD steps' rows (4 x NB floats a step) at a time, then
+// scans each column of those steps.  Every add is an explicit
+// round-to-nearest intrinsic in a fixed order: deterministic, and column
+// b of a batched call equals the single-vector call bitwise.  A chunk of
+// any length L % 4 == 0 is walked this way (the carry spans the steps), and
 // split_psum runs this scan (launch_seg_psum) on its flattened slab.
 //
 // seg_fixup: the pieces of shard k's row r are the contiguous run
@@ -98,15 +102,26 @@
 // chunk_ptr[c] .. chunk_ptr[c+1] of the shard's row-ordered table (row
 // order is chunk order in a seg shard); a chunk without pieces (padding)
 // loads and stores nothing.  What bounds it on the H100: not the 8 bytes
-// of vals + cols an element but the x gathers (4 bytes an element a
-// column, scattered): seg_psum takes 7.5x its B = 1 time at B = 8 for the
-// same vals and cols, and its psum stores, which no warp waits on, cost
+// of vals + cols an element but the x gathers, and at B = 8 the columns'
+// scans and walks.  With x batch-major, 8 columns were 8 scattered 4-byte
+// gathers an element, and the B = 8 scan took 8.6x its B = 1 time on
+// audikw_1; with x batch-minor an element's 8 columns are one sector, and
+// seg_psum takes 2.5x (powerlaw_tail, 131k rows) to 3.1x (api/split64)
+// its B = 1 time at B = 8.  On audikw_1 seg_piece_sums now takes 1,530 us
+// a call at B = 8 against 314 at B = 1 (4.9x; with every column index 0,
+// all gathers one row, still 1.18 of 1.55 ms): 8 columns' scans and
+// window walks, a scan_step and 2-3 step_sums of shuffles a column a step,
+// on 16 warps an SM (128 registers, capped: SCAN_BLOCKS), where the B = 1
+// scan waits on its gathers.  Its stores, which no warp waits on, cost
 // little.  So the sums never touch shared memory: a stage of 2 KB a warp
 // shrank the L1 that the gathers hit and made the scan 11-66% slower than
 // seg_psum on a banded matrix; in registers, with psum[hi] fetched by
 // shuffles, it is 11% faster there at B = 1 and level at B = 8, and up to
 // 10% slower on a power-law graph, whose many short pieces cost shuffles
-// of their own.
+// of their own.  The batched scans gather ROWS_AHEAD steps' rows at a time
+// and walk the window once a step for every column (the records, ends and
+// ballots are the columns' own), each column's adds in the one-column
+// order.
 #include "common.cuh"
 
 namespace {
@@ -121,11 +136,26 @@ constexpr int STAGE = ROUND + 4;        // a column's row in the stage
 constexpr int STEP = 4 * WARP;          // elements a warp scans per step
 constexpr int STEPS_AHEAD = 4;          // steps whose loads go out at once
 constexpr int GROUP = STEP * STEPS_AHEAD;  // elements a warp's loads cover
+// Steps whose x rows a batched scan (NB > 1) gathers at once: NB columns
+// of 4 elements a step are 4 * NB floats a lane; a one-column scan gathers
+// a group's STEPS_AHEAD.  And the blocks an SM a batched scan is built for
+// (its registers capped to fit them; 0: no cap, as the one-column scans).
+// tools/kernel_variants.py rows times ROWS_AHEAD 1, 2, 4 by SCAN_BLOCKS 1,
+// 4, 5: (1, 4) ran seg_piece_sums at B = 8 in 0.773 ms on a half-size
+// audikw_1, (1, 1) 0.850, (2, 1) 1.072 (H100; seg_psum 0.711 at both
+// (1, 4) and (1, 1)).
+constexpr int ROWS_AHEAD = 1;
+constexpr int SCAN_BLOCKS = 4;
 
 // One group of STEPS_AHEAD steps of a chunk's elements (`src` its first,
 // element q0 of the group): each lane's 16-byte loads of vals and cols,
 // all of them before the first is used.  Past L: zeros (L % 4 == 0, so a
-// lane's 4 elements are all in or all out).
+// lane's 4 elements are all in or all out).  STREAM (seg_piece_sums'
+// batched scan): loads marked evict-first, as vals and cols are read once
+// a call, so the x rows the columns gather stay in L2 the longer: 2% off
+// that scan at B = 8 on audikw_1, where seg_psum, whose psum stores fill
+// the L2 anyway, lost 0.5% (H100).
+template <bool STREAM>
 __device__ __forceinline__ void load_group(const float* vals, const int* cols,
                                            long long src, int q0, int L,
                                            float4 (&v)[STEPS_AHEAD],
@@ -137,13 +167,19 @@ __device__ __forceinline__ void load_group(const float* vals, const int* cols,
     v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
     ci[u] = make_int4(0, 0, 0, 0);
     if (e < L) {
-      v[u] = *reinterpret_cast<const float4*>(vals + src + e);
-      ci[u] = *reinterpret_cast<const int4*>(cols + src + e);
+      if constexpr (STREAM) {
+        v[u] = __ldcs(reinterpret_cast<const float4*>(vals + src + e));
+        ci[u] = __ldcs(reinterpret_cast<const int4*>(cols + src + e));
+      } else {
+        v[u] = *reinterpret_cast<const float4*>(vals + src + e);
+        ci[u] = *reinterpret_cast<const int4*>(cols + src + e);
+      }
     }
   }
 }
 
-// The group's gathers of one column's x (`xb`), all before the first scan.
+// The group's gathers of a one-column scan's x (`xb`), all before the
+// first scan.
 __device__ __forceinline__ void gather_group(const float* xb,
                                              const int4 (&ci)[STEPS_AHEAD],
                                              int q0, int L,
@@ -154,6 +190,39 @@ __device__ __forceinline__ void gather_group(const float* xb,
     xg[u] = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + u * STEP + 4 * lane < L)
       xg[u] = make_float4(xb[ci[u].x], xb[ci[u].y], xb[ci[u].z], xb[ci[u].w]);
+  }
+}
+
+// A batched scan's x of steps u0 .. u0+A-1 of a group, for the nb columns
+// from b0
+// (`xv`, as shard_x gives it): each of a lane's 4 elements reads its row of
+// x (load_x_row; at B = 8 two 16-byte loads, one sector), all before the
+// first scan; xg[a][b] holds column b of the 4 elements.  Past L and past
+// nb: zeros.
+template <int NB, int A>
+__device__ __forceinline__ void gather_rows(const float* xv, int B, int nb,
+                                            bool vec,
+                                            const int4 (&ci)[STEPS_AHEAD],
+                                            int q0, int u0, int L,
+                                            float4 (&xg)[A][NB]) {
+  const int lane = threadIdx.x % WARP;
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    const int u = u0 + a;
+    float r[4][NB];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int b = 0; b < NB; ++b) r[j][b] = 0.f;
+    if (q0 + u * STEP + 4 * lane < L) {
+      load_x_row<NB>(x_row<NB>(xv, ci[u].x, B), nb, vec, r[0]);
+      load_x_row<NB>(x_row<NB>(xv, ci[u].y, B), nb, vec, r[1]);
+      load_x_row<NB>(x_row<NB>(xv, ci[u].z, B), nb, vec, r[2]);
+      load_x_row<NB>(x_row<NB>(xv, ci[u].w, B), nb, vec, r[3]);
+    }
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      xg[a][b] = make_float4(r[0][b], r[1][b], r[2][b], r[3][b]);
   }
 }
 
@@ -184,12 +253,14 @@ __device__ __forceinline__ float4 scan_step(float4 v, float4 xg,
 }
 
 template <int NB>
-__global__ void __launch_bounds__(CHUNKS_PER_BLOCK* WARP)
+__global__ void __launch_bounds__(CHUNKS_PER_BLOCK* WARP,
+                                  NB == 1 ? 0 : SCAN_BLOCKS)
     seg_psum_kernel(const float* __restrict__ vals,
                     const int* __restrict__ cols, const float* __restrict__ x,
                     long long x_stride, const int* __restrict__ sids,
-                    int n_sids, int C, int L, int Lx, int B,
+                    int n_sids, int C, int L, int B,
                     float* __restrict__ psum) {
+  static_assert(STEPS_AHEAD % ROWS_AHEAD == 0, "whole row groups a group");
   const int lane = threadIdx.x % WARP;
   const long long chunk =
       (long long)blockIdx.x * CHUNKS_PER_BLOCK + threadIdx.x / WARP;
@@ -197,7 +268,8 @@ __global__ void __launch_bounds__(CHUNKS_PER_BLOCK* WARP)
   const int k = (int)(chunk / C), c = (int)(chunk % C);
   const int b0 = blockIdx.y * NB, nb = min(NB, B - b0);
   const int sid = sids ? sids[k] : k;
-  const float* xv = shard_x(x, x_stride, sid, b0, Lx);
+  const float* xv = shard_x(x, x_stride, sid, b0);
+  const bool vec = x_rows_vec(x, B);
   const long long src = ((long long)sid * C + c) * L;
   const long long cs = (long long)C * L;        // psum column stride
   float* dst = psum + ((long long)k * B + b0) * cs + (long long)c * L;
@@ -208,18 +280,37 @@ __global__ void __launch_bounds__(CHUNKS_PER_BLOCK* WARP)
     // the loads of STEPS_AHEAD steps first, then their scans in order
     float4 v[STEPS_AHEAD];
     int4 ci[STEPS_AHEAD];
-    load_group(vals, cols, src, q0, L, v, ci);
+    load_group<false>(vals, cols, src, q0, L, v, ci);
+    if constexpr (NB == 1) {      // the group's gathers, then the scans
 #pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      if (b >= nb) continue;                    // nb is warp-uniform
-      float4 xg[STEPS_AHEAD];
-      gather_group(xv + (long long)b * Lx, ci, q0, L, xg);
+      for (int b = 0; b < NB; ++b) {
+        if (b >= nb) continue;                  // nb is warp-uniform
+        float4 xg[STEPS_AHEAD];
+        gather_group(xv, ci, q0, L, xg);
 #pragma unroll
-      for (int u = 0; u < STEPS_AHEAD; ++u) {
-        const int e = q0 + u * STEP + 4 * lane;
-        if (q0 + u * STEP >= L) continue;       // warp-uniform
-        const float4 o = scan_step(v[u], xg[u], carry[b]);
-        if (e < L) *reinterpret_cast<float4*>(dst + b * cs + e) = o;
+        for (int u = 0; u < STEPS_AHEAD; ++u) {
+          const int e = q0 + u * STEP + 4 * lane;
+          if (q0 + u * STEP >= L) continue;     // warp-uniform
+          const float4 o = scan_step(v[u], xg[u], carry[b]);
+          if (e < L) *reinterpret_cast<float4*>(dst + b * cs + e) = o;
+        }
+      }
+    } else {                      // ROWS_AHEAD steps' rows, then each column
+#pragma unroll
+      for (int u0 = 0; u0 < STEPS_AHEAD; u0 += ROWS_AHEAD) {
+        float4 xg[ROWS_AHEAD][NB];
+        gather_rows<NB, ROWS_AHEAD>(xv, B, nb, vec, ci, q0, u0, L, xg);
+#pragma unroll
+        for (int a = 0; a < ROWS_AHEAD; ++a) {
+          const int u = u0 + a, e = q0 + u * STEP + 4 * lane;
+          if (q0 + u * STEP >= L) continue;     // warp-uniform
+#pragma unroll
+          for (int b = 0; b < NB; ++b) {
+            if (b >= nb) continue;              // nb is warp-uniform
+            const float4 o = scan_step(v[u], xg[a][b], carry[b]);
+            if (e < L) *reinterpret_cast<float4*>(dst + b * cs + e) = o;
+          }
+        }
       }
     }
   }
@@ -258,15 +349,15 @@ __device__ __forceinline__ float step_sum(float4 o, int e) {
 // window holding such a piece is read again at the next step.  A padded
 // piece stores 0 whenever its window is read.
 template <int NB>
-__global__ void __launch_bounds__(CHUNKS_PER_BLOCK* WARP)
+__global__ void __launch_bounds__(CHUNKS_PER_BLOCK* WARP,
+                                  NB == 1 ? 0 : SCAN_BLOCKS)
     seg_piece_sums_kernel(const float* __restrict__ vals,
                           const int* __restrict__ cols,
                           const float* __restrict__ x, long long x_stride,
                           const int* __restrict__ pieces,
                           const int* __restrict__ chunk_ptr,
                           const int* __restrict__ sids, int n_sids, int C,
-                          int L, int Lx, int Pp, int B,
-                          float* __restrict__ d) {
+                          int L, int Pp, int B, float* __restrict__ d) {
   const int lane = threadIdx.x % WARP;
   const long long chunk =
       (long long)blockIdx.x * CHUNKS_PER_BLOCK + threadIdx.x / WARP;
@@ -277,7 +368,8 @@ __global__ void __launch_bounds__(CHUNKS_PER_BLOCK* WARP)
   const int p0 = cp[0], p1 = cp[1];
   if (p0 >= p1) return;                         // no pieces: nothing to store
   const int b0 = blockIdx.y * NB, nb = min(NB, B - b0);
-  const float* xv = shard_x(x, x_stride, sid, b0, Lx);
+  const float* xv = shard_x(x, x_stride, sid, b0);
+  const bool vec = x_rows_vec(x, B);
   const long long src = ((long long)sid * C + c) * L;
   const int* pc = pieces + (long long)sid * Pp * 5;
   float* dk = d + ((long long)k * B + b0) * Pp;  // column b0's pieces
@@ -289,63 +381,134 @@ __global__ void __launch_bounds__(CHUNKS_PER_BLOCK* WARP)
   for (int q0 = 0; q0 < L; q0 += GROUP) {
     float4 v[STEPS_AHEAD];
     int4 ci[STEPS_AHEAD];
-    load_group(vals, cols, src, q0, L, v, ci);
+    load_group<(NB > 1)>(vals, cols, src, q0, L, v, ci);
     int done = 0;                   // windows from w0 the group finished
+    if constexpr (NB == 1) {        // the group's gathers, then the steps
 #pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      if (b >= nb) continue;                    // nb is warp-uniform
-      float4 xg[STEPS_AHEAD];
-      gather_group(xv + (long long)b * Lx, ci, q0, L, xg);
-      float* db = dk + (long long)b * Pp;
-      int i0 = 0;                   // this column's first unfinished window
+      for (int b = 0; b < NB; ++b) {
+        if (b >= nb) continue;                    // nb is warp-uniform
+        float4 xg[STEPS_AHEAD];
+        gather_group(xv, ci, q0, L, xg);
+        float* db = dk + (long long)b * Pp;
+        int i0 = 0;                   // this column's first unfinished window
 #pragma unroll
-      for (int u = 0; u < STEPS_AHEAD; ++u) {
-        const int q = q0 + u * STEP, qe = q + STEP;
-        if (q >= L) continue;                   // warp-uniform
-        const float4 o = scan_step(v[u], xg[u], carry[b]);
-        // the piece before a window's lane 0: lane 31 of the window before,
-        // when that window was read in this step (else unknown: -2)
-        float h_in = 0.f;
-        int hi_in = -2;
-        for (int i = i0; w0 + i * WARP < p1; ++i) {
-          const int p = w0 + i * WARP + lane;
-          const int2 s = i == 0 ? first : piece_span(pc, p, p1);
-          const int lo = s.x, hi = s.y;
-          const bool real = p < p1 && lo <= hi;
-          const bool ends = real && hi >= q && hi < qe;
-          float h = 0.f;
-          if (__any_sync(FULL_MASK, ends))
-            h = step_sum(o, ends ? hi - q : 0);
-          // psum[lo - 1] is the previous piece's psum[hi] where that piece
-          // ends at lo - 1 in this step (pieces tile a chunk); else it is
-          // fetched, or `pend` where it lies in an earlier step
-          float h_prev = __shfl_up_sync(FULL_MASK, h, 1);
-          int hi_prev = __shfl_up_sync(FULL_MASK, real ? hi : -2, 1);
-          if (lane == 0) {
-            h_prev = h_in;
-            hi_prev = hi_in;
+        for (int u = 0; u < STEPS_AHEAD; ++u) {
+          const int q = q0 + u * STEP, qe = q + STEP;
+          if (q >= L) continue;                   // warp-uniform
+          const float4 o = scan_step(v[u], xg[u], carry[b]);
+          // the piece before a window's lane 0: lane 31 of the window before,
+          // when that window was read in this step (else unknown: -2)
+          float h_in = 0.f;
+          int hi_in = -2;
+          for (int i = i0; w0 + i * WARP < p1; ++i) {
+            const int p = w0 + i * WARP + lane;
+            const int2 s = i == 0 ? first : piece_span(pc, p, p1);
+            const int lo = s.x, hi = s.y;
+            const bool real = p < p1 && lo <= hi;
+            const bool ends = real && hi >= q && hi < qe;
+            float h = 0.f;
+            if (__any_sync(FULL_MASK, ends))
+              h = step_sum(o, ends ? hi - q : 0);
+            // psum[lo - 1] is the previous piece's psum[hi] where that piece
+            // ends at lo - 1 in this step (pieces tile a chunk); else it is
+            // fetched, or `pend` where it lies in an earlier step
+            float h_prev = __shfl_up_sync(FULL_MASK, h, 1);
+            int hi_prev = __shfl_up_sync(FULL_MASK, real ? hi : -2, 1);
+            if (lane == 0) {
+              h_prev = h_in;
+              hi_prev = hi_in;
+            }
+            const bool at_here = real && lo > 0 && lo - 1 >= q && lo - 1 < qe;
+            const bool adj = hi_prev == lo - 1;
+            float before = at_here ? h_prev : pend[b];
+            if (__any_sync(FULL_MASK, at_here && !adj)) {
+              const float t = step_sum(o, at_here && !adj ? lo - 1 - q : 0);
+              if (at_here && !adj) before = t;
+            }
+            if (ends)
+              db[p] = lo == 0 ? h : __fsub_rn(h, before);
+            else if (p < p1 && !real)
+              db[p] = 0.f;
+            // a piece that runs on past the step: keep its sum at lo - 1 if
+            // that lies here, and read this window again at the next step
+            const bool on = real && hi >= qe;
+            const unsigned keep = __ballot_sync(FULL_MASK, on && at_here);
+            if (keep) pend[b] = __shfl_sync(FULL_MASK, before, __ffs(keep) - 1);
+            i0 = i;
+            if (__any_sync(FULL_MASK, on)) break;
+            i0 = i + 1;
+            h_in = __shfl_sync(FULL_MASK, h, WARP - 1);
+            hi_in = __shfl_sync(FULL_MASK, real ? hi : -2, WARP - 1);
           }
-          const bool at_here = real && lo > 0 && lo - 1 >= q && lo - 1 < qe;
-          const bool adj = hi_prev == lo - 1;
-          float before = at_here ? h_prev : pend[b];
-          if (__any_sync(FULL_MASK, at_here && !adj)) {
-            const float t = step_sum(o, at_here && !adj ? lo - 1 - q : 0);
-            if (at_here && !adj) before = t;
+        }
+        done = i0;
+      }
+    } else {                        // ROWS_AHEAD steps' rows at a time
+      int i0 = 0;                   // the first window from w0 not finished
+#pragma unroll
+      for (int u0 = 0; u0 < STEPS_AHEAD; u0 += ROWS_AHEAD) {
+        float4 xg[ROWS_AHEAD][NB];
+        gather_rows<NB, ROWS_AHEAD>(xv, B, nb, vec, ci, q0, u0, L, xg);
+#pragma unroll
+        for (int a = 0; a < ROWS_AHEAD; ++a) {
+          const int u = u0 + a;
+          const int q = q0 + u * STEP, qe = q + STEP;
+          if (q >= L) continue;                 // warp-uniform
+          float4 o[NB];
+#pragma unroll
+          for (int b = 0; b < NB; ++b)
+            if (b < nb) o[b] = scan_step(v[u], xg[a][b], carry[b]);
+          // the piece before a window's lane 0: lane 31 of the window
+          // before, when that window was read in this step (else -2)
+          float h_in[NB];
+#pragma unroll
+          for (int b = 0; b < NB; ++b) h_in[b] = 0.f;
+          int hi_in = -2;
+          for (int i = i0; w0 + i * WARP < p1; ++i) {
+            // the window's records, ends and carries serve every column
+            const int p = w0 + i * WARP + lane;
+            const int2 s = i == 0 ? first : piece_span(pc, p, p1);
+            const int lo = s.x, hi = s.y;
+            const bool real = p < p1 && lo <= hi;
+            const bool ends = real && hi >= q && hi < qe;
+            const bool any_ends = __any_sync(FULL_MASK, ends);
+            int hi_prev = __shfl_up_sync(FULL_MASK, real ? hi : -2, 1);
+            if (lane == 0) hi_prev = hi_in;
+            // psum[lo - 1]: the previous piece's psum[hi] where that piece
+            // ends at lo - 1 in this step, else fetched, or `pend`
+            const bool at_here =
+                real && lo > 0 && lo - 1 >= q && lo - 1 < qe;
+            const bool fetch = at_here && hi_prev != lo - 1;
+            const bool any_fetch = __any_sync(FULL_MASK, fetch);
+            // a piece that runs on past the step keeps its sum at lo - 1
+            const bool on = real && hi >= qe;
+            const unsigned keep = __ballot_sync(FULL_MASK, on && at_here);
+#pragma unroll
+            for (int b = 0; b < NB; ++b) {
+              if (b >= nb) continue;            // nb is warp-uniform
+              float h = 0.f;
+              if (any_ends) h = step_sum(o[b], ends ? hi - q : 0);
+              float h_prev = __shfl_up_sync(FULL_MASK, h, 1);
+              if (lane == 0) h_prev = h_in[b];
+              float before = at_here ? h_prev : pend[b];
+              if (any_fetch) {
+                const float t = step_sum(o[b], fetch ? lo - 1 - q : 0);
+                if (fetch) before = t;
+              }
+              float* db = dk + (long long)b * Pp;
+              if (ends)
+                db[p] = lo == 0 ? h : __fsub_rn(h, before);
+              else if (p < p1 && !real)
+                db[p] = 0.f;
+              if (keep)
+                pend[b] = __shfl_sync(FULL_MASK, before, __ffs(keep) - 1);
+              h_in[b] = __shfl_sync(FULL_MASK, h, WARP - 1);
+            }
+            i0 = i;
+            if (__any_sync(FULL_MASK, on)) break;
+            i0 = i + 1;
+            hi_in = __shfl_sync(FULL_MASK, real ? hi : -2, WARP - 1);
           }
-          if (ends)
-            db[p] = lo == 0 ? h : __fsub_rn(h, before);
-          else if (p < p1 && !real)
-            db[p] = 0.f;
-          // a piece that runs on past the step: keep its sum at lo - 1 if
-          // that lies here, and read this window again at the next step
-          const bool on = real && hi >= qe;
-          const unsigned keep = __ballot_sync(FULL_MASK, on && at_here);
-          if (keep) pend[b] = __shfl_sync(FULL_MASK, before, __ffs(keep) - 1);
-          i0 = i;
-          if (__any_sync(FULL_MASK, on)) break;
-          i0 = i + 1;
-          h_in = __shfl_sync(FULL_MASK, h, WARP - 1);
-          hi_in = __shfl_sync(FULL_MASK, real ? hi : -2, WARP - 1);
         }
       }
       done = i0;
@@ -661,7 +824,7 @@ __global__ void __launch_bounds__(FIXUP_WARPS* WARP, NB == 1 ? 4 : 1)
 
 int launch_seg_psum(const float* vals, const int* cols, const float* x,
                     long long x_stride, const int* sids, int n_sids, int C,
-                    int L, int Lx, int B, float* psum, cudaStream_t s) {
+                    int L, int B, float* psum, cudaStream_t s) {
   const long long chunks = (long long)n_sids * C;
   if (chunks == 0 || B == 0) return 0;
   const unsigned blocks =
@@ -669,19 +832,19 @@ int launch_seg_psum(const float* vals, const int* cols, const float* x,
   constexpr int threads = CHUNKS_PER_BLOCK * WARP;
   if (B == 1)
     seg_psum_kernel<1><<<blocks, threads, 0, s>>>(vals, cols, x, x_stride,
-                                                  sids, n_sids, C, L, Lx, B,
+                                                  sids, n_sids, C, L, B,
                                                   psum);
   else
     seg_psum_kernel<RHS_CHUNK>
         <<<dim3(blocks, (B + RHS_CHUNK - 1) / RHS_CHUNK), threads, 0, s>>>(
-            vals, cols, x, x_stride, sids, n_sids, C, L, Lx, B, psum);
+            vals, cols, x, x_stride, sids, n_sids, C, L, B, psum);
   return (int)cudaGetLastError();
 }
 
 RT_API int rt_seg_psum(const float* vals, const int* cols, const float* x,
                        long long x_stride, const int* sids, int n_sids, int C,
-                       int L, int Lx, int B, float* psum, void* stream) {
-  return launch_seg_psum(vals, cols, x, x_stride, sids, n_sids, C, L, Lx, B,
+                       int L, int B, float* psum, void* stream) {
+  return launch_seg_psum(vals, cols, x, x_stride, sids, n_sids, C, L, B,
                          psum, (cudaStream_t)stream);
 }
 
@@ -737,7 +900,7 @@ RT_API int rt_seg_piece_sums(const float* vals, const int* cols,
                              const float* x, long long x_stride,
                              const int* pieces, const int* chunk_ptr,
                              const int* sids, int n_sids, int C, int L,
-                             int Lx, int Pp, int B, float* d, void* stream) {
+                             int Pp, int B, float* d, void* stream) {
   const long long chunks = (long long)n_sids * C;
   if (chunks == 0 || B == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -746,13 +909,13 @@ RT_API int rt_seg_piece_sums(const float* vals, const int* cols,
   constexpr int threads = CHUNKS_PER_BLOCK * WARP;
   if (B == 1)
     seg_piece_sums_kernel<1><<<blocks, threads, 0, s>>>(
-        vals, cols, x, x_stride, pieces, chunk_ptr, sids, n_sids, C, L, Lx,
-        Pp, B, d);
+        vals, cols, x, x_stride, pieces, chunk_ptr, sids, n_sids, C, L, Pp,
+        B, d);
   else
     seg_piece_sums_kernel<RHS_CHUNK>
         <<<dim3(blocks, (B + RHS_CHUNK - 1) / RHS_CHUNK), threads, 0, s>>>(
             vals, cols, x, x_stride, pieces, chunk_ptr, sids, n_sids, C, L,
-            Lx, Pp, B, d);
+            Pp, B, d);
   return (int)cudaGetLastError();
 }
 

@@ -11,7 +11,7 @@
 // split_fixup (spmv_seg.cu) sums each row's runs in split order straight
 // into y, bitwise the pair, with no (n, B, NS, R) partials in between.
 //
-// split_psum:    psum[b, s, c, l] = sum_{j <= l} vals[s, c, j] * x[b, cols[s, c, j]]
+// split_psum:    psum[b, s, c, l] = sum_{j <= l} vals[s, c, j] * x[cols[s, c, j], b]
 // split_combine: y[s, b, r] = sum_{t < NS} part[k, b, t, r]   (t in split order)
 //
 // What bounds them on the H100: bytes.  split_psum reads 8 bytes of
@@ -49,12 +49,11 @@ __global__ void split_combine_kernel(const float* __restrict__ part,
 
 }  // namespace
 
-// C = NS * Cs chunks of L elements; x is (B, n), psum (B, C, L): seg_psum's
-// scan on one shard (the slab), x as one shared (1, B, n) buffer.
+// C = NS * Cs chunks of L elements; x is (n, B), psum (B, C, L): seg_psum's
+// scan on one shard (the slab), x as one shared (1, n, B) buffer.
 RT_API int rt_split_psum(const float* vals, const int* cols, const float* x,
-                         int C, int L, int n, int B, float* psum,
-                         void* stream) {
-  return launch_seg_psum(vals, cols, x, 0, nullptr, 1, C, L, n, B, psum,
+                         int C, int L, int B, float* psum, void* stream) {
+  return launch_seg_psum(vals, cols, x, 0, nullptr, 1, C, L, B, psum,
                          (cudaStream_t)stream);
 }
 

@@ -10,9 +10,9 @@
 // tile_spmv (ops.py:463) and of the deprecated bell_* shims (:132, :151).
 //
 // tile_contrib:   y[s, b, mb*BM + i] = sum over block row mb's tiles t
-//                   (in stored order) of sum_j data[s, t, i, j] * x[s, b, xcol[s, t, j]]
+//                   (in stored order) of sum_j data[s, t, i, j] * x[s, xcol[s, t, j], b]
 // tile_walk_spmv: y[b, mb*bm + i] = sum over t in tile_ptr[mb] .. tile_ptr[mb+1]
-//                   of sum_j data[t, i, j] * x[b, tile_cols[t]*BN + j]   (x = 0 past n)
+//                   of sum_j data[t, i, j] * x[tile_cols[t]*BN + j, b]   (x = 0 past n)
 //
 // What bounds them on the H100: bytes.  tile_contrib moves a tile's
 // BM*BN*4 bytes of data plus BN*4 bytes of lane positions for 2*BM*BN
@@ -45,7 +45,18 @@
 // rows are summed once, at the end, with a fixed butterfly (store_rows).
 // The data and positions of the next PREFETCH tiles, and the next tile's
 // x, are loaded before a tile's FMAs, so a block row's dependent loads
-// overlap.  One load feeds RHS_CHUNK columns.
+// overlap.  One load feeds RHS_CHUNK columns, whose x values, x being
+// batch-minor, lie in one row (at B = 8 one sector a cell, where the
+// batch-major x took one a column): the lanes-across walks load a cell's
+// row in 16-byte loads where B % 4 == 0 (load_x_row), the masked walks,
+// whose lanes read lone cells, 4 bytes at a time (16-byte loads, which
+// their unrolled walks hoisted, took the masked walk from 80 to 186
+// registers at 8 columns and made it 1.9x slower: api/tile, H100).  A
+// lane's 4 cells of 8 columns are then its own 128 bytes, so a warp's
+// load touches 32 lines where the batch-major one touched 4: at B = 8 the
+// general lanes-across walks run 13-17% slower than they did batch-major
+// (api/bell16x16, api/tile_flat16x128, H100), and staging the rows
+// through shared memory, a warp's loads coalesced, was slower still.
 // The null-mask walk (tile_walk_dense_kernel) is the same walk, x read at
 // the tile's block column instead of through xcol.
 //
@@ -128,14 +139,23 @@ __device__ __forceinline__ void add_tile(float (&part)[8][NB],
 
 constexpr int ROW4 = 128 / 4;      // 16-byte words of a tile row
 
+// Column b0 of tile_walk_spmv's x (n, B).  A one-column walk (b0 = 0)
+// keeps the batch-major address arithmetic it was compiled with before, so
+// its code is unchanged.
+template <int NB>
+__device__ __forceinline__ const float* walk_x(const float* x, int b0,
+                                               int n) {
+  return NB == 1 ? x + (long long)b0 * n : x + b0;
+}
+
 // tile_contrib's (8, 128) tiles: x through the lane positions xcol.
 template <int NB>
 struct FlatTiles {
   const float4* data;      // tile 0 of the shard, at the lane's cells
   const int4* xcol;        // tile 0's lane positions, at the lane's 4
   const float* x;          // column b0 of the shard's x buffer
-  long long Lx;
-  int nb;
+  int B, nb;
+  bool vec;                // x's rows take 16-byte loads
   __device__ __forceinline__ void load(int t, float4 (&d)[8],
                                        int4& c) const {
 #pragma unroll
@@ -145,12 +165,14 @@ struct FlatTiles {
   }
   __device__ __forceinline__ void gather(const int4& c,
                                          float (&xv)[4][NB]) const {
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      if (b >= nb) break;
-      const float* xb = x + b * Lx;
-      xv[0][b] = xb[c.x], xv[1][b] = xb[c.y], xv[2][b] = xb[c.z],
-      xv[3][b] = xb[c.w];
+    if constexpr (NB == 1) {
+      if (nb > 0) xv[0][0] = x[c.x], xv[1][0] = x[c.y], xv[2][0] = x[c.z],
+                  xv[3][0] = x[c.w];
+    } else {
+      load_x_row<NB>(x_row<NB>(x, c.x, B), nb, vec, xv[0]);
+      load_x_row<NB>(x_row<NB>(x, c.y, B), nb, vec, xv[1]);
+      load_x_row<NB>(x_row<NB>(x, c.z, B), nb, vec, xv[2]);
+      load_x_row<NB>(x_row<NB>(x, c.w, B), nb, vec, xv[3]);
     }
   }
 };
@@ -162,7 +184,8 @@ struct BlockTiles {
   const int* tile_cols;
   long long tile_stride;   // float4s from one tile to the next
   const float* x;          // column b0 of x
-  int n, nb, lane;
+  int n, B, nb, lane;
+  bool vec;                // x's rows take 16-byte loads
   __device__ __forceinline__ void load(int t, float4 (&d)[8],
                                        long long& c) const {
 #pragma unroll
@@ -171,12 +194,14 @@ struct BlockTiles {
   }
   __device__ __forceinline__ void gather(long long c,
                                          float (&xv)[4][NB]) const {
+    if constexpr (NB == 1) {
+      if (nb > 0)
 #pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      if (b >= nb) break;
-      const float* xb = x + (long long)b * n;
+        for (int j = 0; j < 4; ++j) xv[j][0] = c + j < n ? x[c + j] : 0.f;
+    } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) xv[j][b] = c + j < n ? xb[c + j] : 0.f;
+      for (int j = 0; j < 4; ++j)
+        if (c + j < n) load_x_row<NB>(x_row<NB>(x, c + j, B), nb, vec, xv[j]);
     }
   }
 };
@@ -280,8 +305,8 @@ __global__ void tile_contrib_kernel(const float* __restrict__ data,
                                     const float* __restrict__ x,
                                     long long x_stride,
                                     const int* __restrict__ sids, int n_sids,
-                                    int Tp, int Rb, int rb_used, int Lx,
-                                    int B, int tile_blocks,
+                                    int Tp, int Rb, int rb_used, int B,
+                                    int tile_blocks,
                                     float* __restrict__ y) {
   constexpr int BM = 8, BN = 128;
   const long long R = (long long)Rb * BM;
@@ -301,7 +326,7 @@ __global__ void tile_contrib_kernel(const float* __restrict__ data,
   const FlatTiles<NB> tiles{
       reinterpret_cast<const float4*>(data + tile0 * BM * BN) + lane,
       reinterpret_cast<const int4*>(xcol + tile0 * BN) + lane,
-      shard_x(x, x_stride, sid, b0, Lx), Lx, nb};
+      shard_x(x, x_stride, sid, b0), B, nb, x_rows_vec(x, B)};
   float part[BM][NB] = {};
   walk_tiles<NB, FlatTiles<NB>, int4>(tiles, ptr[mb], ptr[mb + 1], part);
   store_rows(part, lane,
@@ -344,7 +369,7 @@ __global__ void tile_walk_kernel(const float* __restrict__ data,
   const int mb = (int)(item / groups), g = (int)(item % groups);
   const int r = lane % RG, u = lane / RG;
   const int b0 = blockIdx.y * NB, nb = min(NB, B - b0);
-  const float* xv = x + (long long)b0 * n;
+  const float* xv = walk_x<NB>(x, b0, n);
   const int t_hi = tile_ptr[mb + 1];
   // lane (u, r): row g*RG + r of the tiles t_lo + u, t_lo + u + TPS, ...
   auto row_of = [&](int t) { return (long long)t * bm + g * RG + r; };
@@ -375,8 +400,8 @@ __global__ void tile_walk_kernel(const float* __restrict__ data,
       df[k] = jf[k] >= 0 ? data[row_of(t0 + u + TPS * k) * BN + j] : 0.f;
 #pragma unroll
       for (int b = 0; b < NB; ++b)
-        xf[k][b] = jf[k] >= 0 && b < nb ? xv[(long long)b * n + xc[k] + j]
-                                        : 0.f;
+        xf[k][b] = jf[k] >= 0 && b < nb
+                         ? x_row<NB>(xv, xc[k] + j, B)[b] : 0.f;
     }
 #pragma unroll
     for (int k = 0; k < STEPS; ++k) {
@@ -406,7 +431,7 @@ __global__ void tile_walk_kernel(const float* __restrict__ data,
 #pragma unroll
             for (int b = 0; b < NB; ++b)
               if (b < nb)
-                acc[b] = fmaf(v[j], xv[(long long)b * n + xc[k] + 32 * q + j],
+                acc[b] = fmaf(v[j], x_row<NB>(xv, xc[k] + 32 * q + j, B)[b],
                               acc[b]);
           continue;
         }
@@ -418,7 +443,7 @@ __global__ void tile_walk_kernel(const float* __restrict__ data,
 #pragma unroll
           for (int b = 0; b < NB; ++b)
             if (b < nb)
-              acc[b] = fmaf(d, xv[(long long)b * n + xc[k] + j], acc[b]);
+              acc[b] = fmaf(d, x_row<NB>(xv, xc[k] + j, B)[b], acc[b]);
         }
       }
     }
@@ -457,7 +482,8 @@ __global__ void tile_walk_dense_kernel(const float* __restrict__ data,
   const int b0 = blockIdx.y * NB, nb = min(NB, B - b0);
   const BlockTiles<NB> tiles{
       reinterpret_cast<const float4*>(data + (long long)g * RG * BN) + lane,
-      tile_cols, (long long)bm * BN / 4, x + (long long)b0 * n, n, nb, lane};
+      tile_cols, (long long)bm * BN / 4, walk_x<NB>(x, b0, n), n, B, nb,
+      lane, x_rows_vec(x, B)};
   float part[RG][NB] = {};
   walk_tiles<NB, BlockTiles<NB>, long long>(tiles, tile_ptr[mb],
                                             tile_ptr[mb + 1], part);
@@ -595,7 +621,7 @@ __global__ void tile_walk_general_kernel(
   const int mb = (int)(item / L.groups), g = (int)(item % L.groups);
   const int r = lane % L.RG, u = lane / L.RG, row = g * L.RG + r;
   const int b0 = blockIdx.y * NB, nb = min(NB, B - b0);
-  const float* xv = x + (long long)b0 * n;
+  const float* xv = walk_x<NB>(x, b0, n);
   const int MB = bn / 8;                     // mask bytes a tile row
   const int W = min(MB & -MB, 16);
   const int lo = tile_ptr[mb];
@@ -633,8 +659,8 @@ __global__ void tile_walk_general_kernel(
       df[s] = jf[s] >= 0 ? data[dr[s] + j] : 0.f;
 #pragma unroll
       for (int b = 0; b < NB; ++b)
-        xf[s][b] = jf[s] >= 0 && b < nb ? xv[(long long)b * n + xc[s] + j]
-                                        : 0.f;
+        xf[s][b] = jf[s] >= 0 && b < nb
+                         ? x_row<NB>(xv, xc[s] + j, B)[b] : 0.f;
     }
 #pragma unroll
     for (int s = 0; s < S; ++s) {
@@ -664,7 +690,7 @@ __global__ void tile_walk_general_kernel(
 #pragma unroll
             for (int b = 0; b < NB; ++b)
               if (b < nb)
-                acc[b] = fmaf(v[j], xv[(long long)b * n + xc[s] + 32 * q + j],
+                acc[b] = fmaf(v[j], x_row<NB>(xv, xc[s] + 32 * q + j, B)[b],
                               acc[b]);
           continue;
         }
@@ -676,7 +702,7 @@ __global__ void tile_walk_general_kernel(
 #pragma unroll
           for (int b = 0; b < NB; ++b)
             if (b < nb)
-              acc[b] = fmaf(d, xv[(long long)b * n + xc[s] + j], acc[b]);
+              acc[b] = fmaf(d, x_row<NB>(xv, xc[s] + j, B)[b], acc[b]);
         }
       }
     }
@@ -716,7 +742,8 @@ struct GeneralBlockCells {
   const float* data;
   const int* tile_cols;
   const float* x;                 // column b0 of x
-  int bm, bn, n, nb;
+  int bm, bn, n, B, nb;
+  bool vec;                       // x's rows take 16-byte loads
   __device__ __forceinline__ F load(int t, int row, int w) const {
     return __ldg(reinterpret_cast<const F*>(
                      data + ((long long)t * bm + row) * bn) + w);
@@ -725,12 +752,14 @@ struct GeneralBlockCells {
     return (long long)tile_cols[t] * bn + V * w;
   }
   __device__ __forceinline__ void gather(Pos c, float (&xv)[V][NB]) const {
+    if constexpr (NB == 1) {
+      if (nb > 0)
 #pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      if (b >= nb) break;
-      const float* xb = x + (long long)b * n;
+        for (int j = 0; j < V; ++j) xv[j][0] = c + j < n ? x[c + j] : 0.f;
+    } else {
 #pragma unroll
-      for (int j = 0; j < V; ++j) xv[j][b] = c + j < n ? xb[c + j] : 0.f;
+      for (int j = 0; j < V; ++j)
+        if (c + j < n) load_x_row<NB>(x_row<NB>(x, c + j, B), nb, vec, xv[j]);
     }
   }
 };
@@ -743,8 +772,8 @@ struct GeneralFlatCells {
   const float* data;              // tile 0 of the shard
   const int* xcol;                // tile 0's lane positions
   const float* x;                 // column b0 of the shard's x buffer
-  long long Lx;
-  int bm, bn, nb;
+  int bm, bn, B, nb;
+  bool vec;                       // x's rows take 16-byte loads
   __device__ __forceinline__ F load(int t, int row, int w) const {
     return __ldg(reinterpret_cast<const F*>(
                      data + ((long long)t * bm + row) * bn) + w);
@@ -754,12 +783,14 @@ struct GeneralFlatCells {
   }
   __device__ __forceinline__ void gather(const Pos& c,
                                          float (&xv)[V][NB]) const {
+    if constexpr (NB == 1) {
+      if (nb > 0)
 #pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      if (b >= nb) break;
-      const float* xb = x + b * Lx;
+        for (int j = 0; j < V; ++j) xv[j][0] = x[cell(c, j)];
+    } else {
 #pragma unroll
-      for (int j = 0; j < V; ++j) xv[j][b] = xb[cell(c, j)];
+      for (int j = 0; j < V; ++j)
+        load_x_row<NB>(x_row<NB>(x, cell(c, j), B), nb, vec, xv[j]);
     }
   }
 };
@@ -869,8 +900,8 @@ __global__ void tile_walk_general_dense_kernel(
   if (item >= (long long)Mb * L.groups) return;
   const int mb = (int)(item / L.groups), g = (int)(item % L.groups);
   const int b0 = blockIdx.y * NB, nb = min(NB, B - b0);
-  const GeneralBlockCells<NB, V> c{data, tile_cols, x + (long long)b0 * n,
-                                   bm, bn, n, nb};
+  const GeneralBlockCells<NB, V> c{data, tile_cols, walk_x<NB>(x, b0, n), bm,
+                                   bn, n, B, nb, x_rows_vec(x, B)};
   float part[R][NB] = {};
   cells_walk<NB, V, R>(c, L, tile_ptr[mb], tile_ptr[mb + 1], g, bm, part);
   const long long rows = (long long)Mb * bm;
@@ -887,7 +918,7 @@ __global__ void tile_contrib_general_kernel(
     const float* __restrict__ data, const int* __restrict__ xcol,
     const int* __restrict__ tile_ptr, const float* __restrict__ x,
     long long x_stride, const int* __restrict__ sids, int n_sids, int Tp,
-    int Rb, int rb_used, int bm, int bn, int Lx, int B, int tile_blocks,
+    int Rb, int rb_used, int bm, int bn, int B, int tile_blocks,
     float* __restrict__ y) {
   const long long rows = (long long)Rb * bm;
   const int b0 = blockIdx.y * NB, nb = min(NB, B - b0);
@@ -908,8 +939,8 @@ __global__ void tile_contrib_general_kernel(
   const int* ptr = tile_ptr + (long long)sid * (Rb + 1);
   const long long tile0 = (long long)sid * Tp;
   const GeneralFlatCells<NB, V> c{data + tile0 * bm * bn, xcol + tile0 * bn,
-                                  shard_x(x, x_stride, sid, b0, Lx), Lx, bm,
-                                  bn, nb};
+                                  shard_x(x, x_stride, sid, b0), bm, bn, B,
+                                  nb, x_rows_vec(x, B)};
   float part[R][NB] = {};
   cells_walk<NB, V, R>(c, L, ptr[mb], ptr[mb + 1], g, bm, part);
   store_cells(part, L, g, bm, nb,
@@ -966,22 +997,22 @@ void launch_contrib_cells(int rpl, dim3 grid, cudaStream_t s,
                           const float* data, const int* xcol,
                           const int* tile_ptr, const float* x,
                           long long x_stride, const int* sids, int n_sids,
-                          int Tp, int Rb, int rb_used, int bm, int bn, int Lx,
-                          int B, int tile_blocks, float* y) {
+                          int Tp, int Rb, int rb_used, int bm, int bn, int B,
+                          int tile_blocks, float* y) {
   if constexpr (R < GENERAL_ROWS)
     if (rpl > R)
       return launch_contrib_cells<V, 2 * R>(
           rpl, grid, s, data, xcol, tile_ptr, x, x_stride, sids, n_sids, Tp,
-          Rb, rb_used, bm, bn, Lx, B, tile_blocks, y);
+          Rb, rb_used, bm, bn, B, tile_blocks, y);
   constexpr int threads = WARPS_PER_BLOCK * WARP;
   if (B == 1)
     tile_contrib_general_kernel<1, V, R><<<grid, threads, 0, s>>>(
         data, xcol, tile_ptr, x, x_stride, sids, n_sids, Tp, Rb, rb_used, bm,
-        bn, Lx, B, tile_blocks, y);
+        bn, B, tile_blocks, y);
   else
     tile_contrib_general_kernel<RHS_CHUNK, V, R><<<grid, threads, 0, s>>>(
         data, xcol, tile_ptr, x, x_stride, sids, n_sids, Tp, Rb, rb_used, bm,
-        bn, Lx, B, tile_blocks, y);
+        bn, B, tile_blocks, y);
 }
 
 // tile_contrib at a shape other than (8, 128): the grid of the fast path
@@ -991,7 +1022,7 @@ int launch_contrib_general(const float* data, const int* xcol,
                            const int* tile_ptr, const float* x,
                            long long x_stride, const int* sids, int n_sids,
                            int Tp, int Rb, int rb_used, int bm, int bn,
-                           int Lx, int B, float* y, cudaStream_t s) {
+                           int B, float* y, cudaStream_t s) {
   const CellLayout L(bm, bn);
   const long long items = (long long)n_sids * rb_used * L.groups;
   const long long tile_blocks =
@@ -1007,18 +1038,18 @@ int launch_contrib_general(const float* data, const int* xcol,
   if (bn % 4 == 0)
     launch_contrib_cells<4>(L.RPL, grid, s, data, xcol, tile_ptr, x,
                             x_stride, sids, n_sids, Tp, Rb, rb_used, bm, bn,
-                            Lx, B, (int)tile_blocks, y);
+                            B, (int)tile_blocks, y);
   else
     launch_contrib_cells<1>(L.RPL, grid, s, data, xcol, tile_ptr, x,
                             x_stride, sids, n_sids, Tp, Rb, rb_used, bm, bn,
-                            Lx, B, (int)tile_blocks, y);
+                            B, (int)tile_blocks, y);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // data (T, bm, bn), mask (T, bm, bn/8) packed occupancy or null (every
-// cell occupied), tile_cols (T,), tile_ptr (Mb+1,), x (B, n),
+// cell occupied), tile_cols (T,), tile_ptr (Mb+1,), x (n, B),
 // y (B, Mb*bm); bm, bn >= 1, and bn % 8 == 0 with a mask.  One warp per
 // (block row, group of 8 rows) on the fast walks, of MaskLayout's or
 // CellLayout's groups on the general ones.
@@ -1055,14 +1086,14 @@ RT_API int rt_tile_walk_spmv(const float* data, const unsigned char* mask,
 RT_API int rt_tile_spmv(const float* data, const int* xcol,
                         const int* tile_ptr, const float* x,
                         long long x_stride, const int* sids, int n_sids,
-                        int Tp, int Rb, int rb_used, int BM, int BN, int Lx,
-                        int B, float* y, void* stream) {
+                        int Tp, int Rb, int rb_used, int BM, int BN, int B,
+                        float* y, void* stream) {
   if (BM <= 0 || BN <= 0 || rb_used < 0 || rb_used > Rb)
     return (int)cudaErrorInvalidValue;
   if (n_sids == 0 || B == 0) return 0;
   if (BM != 8 || BN != 128)
     return launch_contrib_general(data, xcol, tile_ptr, x, x_stride, sids,
-                                  n_sids, Tp, Rb, rb_used, BM, BN, Lx, B, y,
+                                  n_sids, Tp, Rb, rb_used, BM, BN, B, y,
                                   (cudaStream_t)stream);
   const long long items = (long long)n_sids * rb_used;
   const long long tile_blocks =
@@ -1079,11 +1110,11 @@ RT_API int rt_tile_spmv(const float* data, const int* xcol,
   const cudaStream_t s = (cudaStream_t)stream;
   if (B == 1)
     tile_contrib_kernel<1><<<grid, threads, 0, s>>>(
-        data, xcol, tile_ptr, x, x_stride, sids, n_sids, Tp, Rb, rb_used, Lx,
-        B, (int)tile_blocks, y);
+        data, xcol, tile_ptr, x, x_stride, sids, n_sids, Tp, Rb, rb_used, B,
+        (int)tile_blocks, y);
   else
     tile_contrib_kernel<RHS_CHUNK><<<grid, threads, 0, s>>>(
-        data, xcol, tile_ptr, x, x_stride, sids, n_sids, Tp, Rb, rb_used, Lx,
-        B, (int)tile_blocks, y);
+        data, xcol, tile_ptr, x, x_stride, sids, n_sids, Tp, Rb, rb_used, B,
+        (int)tile_blocks, y);
   return (int)cudaGetLastError();
 }

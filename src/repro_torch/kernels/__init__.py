@@ -8,6 +8,7 @@ per-format kernel API of ``repro.kernels`` on top of them.
   the fix-up and combine fused (``split_fixup``, the split paths' own);
 * ``spmv_tile``  — the tile walks (flat device operands, and one
   TileMatrix addressed by block column);
+* ``exchange``   — the executor's exchange's row gather of x;
 * ``ref``        — the PyTorch oracles and the plain versions;
 * ``ops``        — the format builders, the per-format API re-exported
   here, and the executor's stacked ops.

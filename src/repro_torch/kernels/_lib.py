@@ -28,12 +28,13 @@ __all__ = ["KERNELS", "launch_counts", "reset_launch_counts", "lib",
 #: Every kernel the library holds, by wrapper name.
 KERNELS = ("ell_spmv", "seg_psum", "seg_fixup", "split_combine",
            "tile_contrib", "split_psum", "tile_walk_spmv", "seg_piece_sums",
-           "split_fixup")
+           "split_fixup", "gather_rows")
 
 launch_counts = {name: 0 for name in KERNELS}
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("spmv_ell.cu", "spmv_seg.cu", "spmv_split.cu", "spmv_tile.cu")
+SOURCES = ("spmv_ell.cu", "spmv_seg.cu", "spmv_split.cu", "spmv_tile.cu",
+           "exchange.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,18 +43,19 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C signatures: (symbol, argtypes).  Pointers and the stream are void*.
 _SIGNATURES = {
     "rt_ell_spmv": (_P, _P, _P, _P, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _I,
-                    _I, _P, _P),
-    "rt_seg_psum": (_P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _P, _P),
+                    _P, _P),
+    "rt_seg_psum": (_P, _P, _P, _LL, _P, _I, _I, _I, _I, _P, _P),
     "rt_seg_fixup": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "rt_seg_piece_sums": (_P, _P, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _P, _P),
+                          _P, _P),
     "rt_seg_piece_fixup": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
-    "rt_split_psum": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "rt_split_psum": (_P, _P, _P, _I, _I, _I, _P, _P),
     "rt_split_combine": (_P, _P, _I, _I, _I, _I, _P, _P),
     "rt_split_fixup": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "rt_tile_spmv": (_P, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _I,
-                     _I, _P, _P),
+                     _P, _P),
     "rt_tile_walk_spmv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "rt_gather_rows": (_P, _P, _LL, _I, _P, _P),
 }
 
 _lib = None
@@ -165,6 +167,6 @@ def check(device, **tensors) -> None:
 
 
 def x_stride(x) -> int:
-    """Elements between two shards' x buffers: 0 when every shard reads one
-    shared vector (x is (1, B, Lx))."""
+    """Elements between two shards' batch-minor x buffers, (Sx, Lx, B):
+    0 when every shard reads one shared vector (Sx = 1)."""
     return 0 if x.shape[0] == 1 else x.shape[1] * x.shape[2]

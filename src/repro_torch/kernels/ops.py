@@ -18,7 +18,7 @@ Counterpart of ``repro.kernels.ops``.
   Column b of an (N, B) call equals the call on ``x[:, b]`` bitwise.
 * The stacked ops (``*_stacked``) run one kernel family over the listed
   shards of the S-stacked operands the executor builds: x is the
-  batch-major buffer (S or 1, B, Lx) and the result is written into
+  batch-minor buffer (S or 1, Lx, B) and the result is written into
   ``out`` (S, B, R), rows of the listed shards only.
 """
 from __future__ import annotations
@@ -198,12 +198,12 @@ def _idx(dev, a):
 
 
 def _x_in(dev, x):
-    """x (N,) or (N, B) -> the batch-major (B, N) buffer, and whether it
-    was batched."""
+    """x (N,) or (N, B) -> the kernels' batch-minor (N, B) buffer, and
+    whether it was batched."""
     x = _on(dev, x)
     if x.dim() not in (1, 2):
         raise ValueError(f"x must be (N,) or (N, B), got {tuple(x.shape)}")
-    return (x.t().contiguous(), True) if x.dim() == 2 else (x[None], False)
+    return (x, True) if x.dim() == 2 else (x[:, None], False)
 
 
 def _y_out(y, batched: bool):
@@ -474,7 +474,7 @@ def seg_stacked(vals, cols, pieces, piece_ptr, x, sids, *, chunk_ptr=None,
     :func:`_chunk_ranges` builds it from the table."""
     if chunk_ptr is None:
         chunk_ptr = _chunk_ranges(pieces, piece_ptr, vals.shape[1])
-    out = _out(out, vals, vals.shape[0], x.shape[1], piece_ptr.shape[1] - 1)
+    out = _out(out, vals, vals.shape[0], x.shape[2], piece_ptr.shape[1] - 1)
     d = seg_piece_sums(vals, cols, x, pieces, chunk_ptr, sids)
     return seg_piece_fixup(d, piece_ptr, sids, out=out)
 

@@ -3,10 +3,10 @@
 Counterpart of ``repro.kernels.spmv_ell.ell_spmv``.  One launch covers the
 listed shards of the S-stacked slabs:
 
-    y[s, b, r] = sum_w data[s, r, w] * x[s, b, cols[s, r, w]]
+    y[s, b, r] = sum_w data[s, r, w] * x[s, cols[s, r, w], b]
                + the row's overflow entries, in stored order
 
-``x`` is the batch-major buffer (S or 1, B, Lx); ``out`` is (S, B, R).
+``x`` is the batch-minor buffer (S or 1, Lx, B); ``out`` is (S, B, R).
 ``ovf_ptr`` (S, R+1) holds each row's range of the shard's real overflow
 entries (empty for ``ell`` shards).  ``ell_len`` (S, R) holds each row's
 count of real slots: the kernel reads slots ``0 .. ell_len[s, r])`` only,
@@ -31,7 +31,7 @@ def ell_spmv_plain(data, cols, ovf_rows, ovf_cols, ovf_vals, ovf_ptr, x,
     ``ell_len`` is taken and ignored."""
     R = data.shape[1]
     for sid in sids.tolist():
-        xs = x[sid if x.shape[0] > 1 else 0]                    # (B, Lx)
+        xs = x[sid if x.shape[0] > 1 else 0].t().contiguous()   # (B, Lx)
         y = (data[sid] * xs[:, cols[sid].long()]).sum(-1)       # (B, R)
         n = int(ovf_ptr[sid, R])
         if n:
@@ -49,7 +49,7 @@ def ell_spmv(data, cols, ovf_rows, ovf_cols, ovf_vals, ovf_ptr, x, sids, *,
     :func:`ell_spmv_plain`.
     """
     S, R, W = data.shape
-    B, Lx = x.shape[1], x.shape[2]
+    B = x.shape[2]
     if out is None:
         out = torch.empty((S, B, R), dtype=torch.float32, device=data.device)
     if data.device.type == "cpu":
@@ -73,5 +73,5 @@ def ell_spmv(data, cols, ovf_rows, ovf_cols, ovf_vals, ovf_ptr, x, sids, *,
               None if ell_len is None else ell_len.data_ptr(),
               ovf_ptr.data_ptr(), ovf_cols.data_ptr(), ovf_vals.data_ptr(),
               x.data_ptr(), _lib.x_stride(x), sids.data_ptr(), sids.numel(),
-              R, W, ovf_vals.shape[1], Lx, B, out.data_ptr())
+              R, W, ovf_vals.shape[1], B, out.data_ptr())
     return out

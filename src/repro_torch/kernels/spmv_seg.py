@@ -6,7 +6,8 @@ of the jnp fix-ups ``repro.kernels.ops._seg_fixup`` /
 ``_split_flat_fixup``.
 
 * :func:`seg_psum` — ``psum[k, b, c, l]``, the inclusive prefix sum of
-  ``vals * x[cols]`` inside chunk c of shard ``sids[k]``; (n, B, C, L).
+  ``vals * x[cols, b]`` inside chunk c of shard ``sids[k]``; (n, B, C, L).
+  ``x`` is the batch-minor buffer (S or 1, Lx, B).
 * :func:`seg_fixup` — each piece ``[chunk, lo, hi, row, split]`` adds
   ``psum[chunk, hi] - psum[chunk, lo-1]`` to ``out[out_ids[k], b, split,
   row]``, in piece order; rows without pieces get 0.  ``piece_ptr``
@@ -40,15 +41,16 @@ __all__ = ["seg_psum", "seg_psum_plain", "seg_fixup", "seg_fixup_plain",
 def seg_psum_plain(vals, cols, x, sids, out):
     """Gather, multiply and ``cumsum`` within each chunk."""
     for k, sid in enumerate(sids.tolist()):
-        xs = x[sid if x.shape[0] > 1 else 0]                    # (B, Lx)
-        out[k] = torch.cumsum(vals[sid] * xs[:, cols[sid].long()], dim=-1)
+        xs = x[sid if x.shape[0] > 1 else 0]                    # (Lx, B)
+        xg = xs[cols[sid].long()].movedim(-1, 0)                # (B, C, L)
+        out[k] = torch.cumsum(vals[sid] * xg, dim=-1)
     return out
 
 
 def seg_psum(vals, cols, x, sids, *, out=None):
     """Per-chunk inclusive prefix sums; returns (n, B, C, L)."""
     S, C, L = vals.shape
-    B, Lx = x.shape[1], x.shape[2]
+    B = x.shape[2]
     n = sids.numel()
     if out is None:
         out = torch.empty((n, B, C, L), dtype=torch.float32,
@@ -71,8 +73,8 @@ def seg_psum(vals, cols, x, sids, *, out=None):
         return out
     _lib.call("seg_psum", "rt_seg_psum", vals.device,
               vals.data_ptr(), cols.data_ptr(),
-              x.data_ptr(), _lib.x_stride(x), sids.data_ptr(), n, C, L, Lx,
-              B, out.data_ptr())
+              x.data_ptr(), _lib.x_stride(x), sids.data_ptr(), n, C, L, B,
+              out.data_ptr())
     return out
 
 
@@ -125,7 +127,7 @@ def seg_fixup(psum, pieces, piece_ptr, sids, out_ids, *, num_splits: int,
 def seg_piece_sums_plain(vals, cols, x, pieces, chunk_ptr, sids, out):
     """:func:`seg_psum_plain`'s sums, differenced at each piece's ends;
     writes each shard's pieces ``[chunk_ptr[0], chunk_ptr[C])`` only."""
-    B, C, L = x.shape[1], vals.shape[1], vals.shape[2]
+    B, C, L = x.shape[2], vals.shape[1], vals.shape[2]
     zero = torch.zeros((), dtype=out.dtype, device=out.device)
     for k, sid in enumerate(sids.tolist()):
         ps = seg_psum_plain(vals, cols, x, sids[k:k + 1],
@@ -143,7 +145,7 @@ def seg_piece_sums(vals, cols, x, pieces, chunk_ptr, sids, *, out=None):
     """Each piece's prefix difference from the per-chunk scan; returns
     (n, B, Pp), written at each shard's real pieces only."""
     S, C, L = vals.shape
-    B, Lx = x.shape[1], x.shape[2]
+    B = x.shape[2]
     n, Pp = sids.numel(), pieces.shape[1]
     if out is None:
         out = torch.empty((n, B, Pp), dtype=torch.float32,
@@ -172,7 +174,7 @@ def seg_piece_sums(vals, cols, x, pieces, chunk_ptr, sids, *, out=None):
     _lib.call("seg_piece_sums", "rt_seg_piece_sums", vals.device,
               vals.data_ptr(), cols.data_ptr(), x.data_ptr(),
               _lib.x_stride(x), pieces.data_ptr(), chunk_ptr.data_ptr(),
-              sids.data_ptr(), n, C, L, Lx, Pp, B, out.data_ptr())
+              sids.data_ptr(), n, C, L, Pp, B, out.data_ptr())
     return out
 
 

@@ -14,10 +14,10 @@ The executor's split shards take stage 1 from
 as the reference's device path does; the host op
 ``ops.split_spmv`` takes it from :func:`split_psum`, which launches
 ``seg_psum``'s kernel on the (1, NS*Cs, L) view of the slab with x as one
-shared (1, B, n) buffer: its result is ``seg_psum``'s on that view,
+shared (1, n, B) buffer: its result is ``seg_psum``'s on that view,
 bitwise.
 
-    psum[b, s, c, l] = sum_{j <= l} vals[s, c, j] * x[b, cols[s, c, j]]
+    psum[b, s, c, l] = sum_{j <= l} vals[s, c, j] * x[cols[s, c, j], b]
     y[sids[k], b, r] = sum_t part[k, b, t, r]     (t = 0 .. NS-1, in order)
     split_fixup: the same y, the sum over the splits t that row r has
                  pieces in, each run summed in piece order from 0
@@ -34,17 +34,16 @@ __all__ = ["split_psum", "split_psum_plain", "split_combine",
 
 def split_psum_plain(vals, cols, x, out):
     """Gather, multiply and ``cumsum`` within each chunk."""
-    out[:] = torch.cumsum(vals[None] * x[:, cols.long()], dim=-1)
+    out[:] = torch.cumsum(vals[None] * x[cols.long()].movedim(-1, 0), dim=-1)
     return out
 
 
 def split_psum(vals, cols, x, *, out=None):
     """Per-chunk inclusive prefix sums over the (NS, Cs, L) slab for the
-    batch-major vectors ``x`` (B, n); returns (B, NS, Cs, L).  A CUDA
-    tensor launches the kernel; a CPU tensor runs
-    :func:`split_psum_plain`."""
+    vectors ``x`` (n, B); returns (B, NS, Cs, L).  A CUDA tensor launches
+    the kernel; a CPU tensor runs :func:`split_psum_plain`."""
     NS, Cs, L = vals.shape
-    B, n = x.shape
+    B = x.shape[1]
     if out is None:
         out = torch.empty((B, NS, Cs, L), dtype=torch.float32,
                           device=vals.device)
@@ -65,7 +64,7 @@ def split_psum(vals, cols, x, *, out=None):
         return out
     _lib.call("split_psum", "rt_split_psum", vals.device,
               vals.data_ptr(), cols.data_ptr(),
-              x.data_ptr(), NS * Cs, L, n, B, out.data_ptr())
+              x.data_ptr(), NS * Cs, L, B, out.data_ptr())
     return out
 
 

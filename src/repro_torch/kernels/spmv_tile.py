@@ -7,7 +7,9 @@
   executor's flat S-stacked operands::
 
       y[s, b, mb*bm + i] = sum over block row mb's tiles t of
-                           sum_j data[s, t, i, j] * x[s, b, xcol[s, t, j]]
+                           sum_j data[s, t, i, j] * x[s, xcol[s, t, j], b]
+
+  with ``x`` the batch-minor buffer (S or 1, Lx, B).
 
   Tiles are sorted by block row (``brow``); padding tiles carry
   ``brow = Rb`` and drop.  ``tile_ptr`` (S, Rb+1) holds each block row's
@@ -22,7 +24,7 @@
   block column::
 
       y[b, mb*bm + i] = sum over t in tile_ptr[mb] .. tile_ptr[mb+1] of
-                        sum_j data[t, i, j] * x[b, tile_cols[t]*bn + j]
+                        sum_j data[t, i, j] * x[tile_cols[t]*bn + j, b]
 
   with x taken as 0 past its end.  The TPU kernel's K-padded walk tables
   and masked slots have no counterpart: the kernel walks ``tile_ptr``.
@@ -57,7 +59,7 @@ def tile_contrib_plain(data, xcol, brow, x, sids, out, rb_used=None):
     Rb = out.shape[2] // bm
     rb = Rb if rb_used is None else rb_used
     for sid in sids.tolist():
-        xs = x[sid if x.shape[0] > 1 else 0]                    # (B, Lx)
+        xs = x[sid if x.shape[0] > 1 else 0].t().contiguous()   # (B, Lx)
         xg = xs[:, xcol[sid].long()]                            # (B, Tp, bn)
         contrib = (data[sid][None] * xg[:, :, None, :]).sum(-1)  # (B,Tp,bm)
         keep = brow[sid] < rb
@@ -75,7 +77,7 @@ def tile_contrib(data, xcol, brow, tile_ptr, x, sids, *, rb_used=None,
     CUDA tensor launches the kernel; a CPU tensor runs
     :func:`tile_contrib_plain`."""
     S, Tp, bm, bn = data.shape
-    B, Lx = x.shape[1], x.shape[2]
+    B = x.shape[2]
     Rb = tile_ptr.shape[1] - 1
     rb = Rb if rb_used is None else int(rb_used)
     if not 0 <= rb <= Rb:
@@ -103,7 +105,7 @@ def tile_contrib(data, xcol, brow, tile_ptr, x, sids, *, rb_used=None,
               data.data_ptr(),
               xcol.data_ptr(), tile_ptr.data_ptr(), x.data_ptr(),
               _lib.x_stride(x), sids.data_ptr(), sids.numel(), Tp, Rb, rb,
-              bm, bn, Lx, B, out.data_ptr())
+              bm, bn, B, out.data_ptr())
     return out
 
 
@@ -112,7 +114,8 @@ def tile_walk_spmv_plain(data, tile_cols, tile_ptr, x, out, mask=None):
     (bm, bn) @ (bn,) products of whole tiles, and sum them per block row
     in tile order.  ``mask`` is taken and ignored."""
     T, bm, bn = data.shape
-    B, n = x.shape
+    n, B = x.shape
+    x = x.t().contiguous()                                      # (B, n)
     Mb = tile_ptr.numel() - 1
     Nb = max(-(-n // bn), 1)
     xb = torch.nn.functional.pad(x, (0, Nb * bn - n)).reshape(B, Nb, bn)
@@ -127,11 +130,11 @@ def tile_walk_spmv_plain(data, tile_cols, tile_ptr, x, out, mask=None):
 
 
 def tile_walk_spmv(data, tile_cols, tile_ptr, x, *, mask=None, out=None):
-    """The tile walk for the batch-major vectors ``x`` (B, n); returns
-    ``out`` (B, Mb*bm).  A CUDA tensor launches the kernel; a CPU tensor
-    runs :func:`tile_walk_spmv_plain`."""
+    """The tile walk for the vectors ``x`` (n, B); returns ``out``
+    (B, Mb*bm).  A CUDA tensor launches the kernel; a CPU tensor runs
+    :func:`tile_walk_spmv_plain`."""
     T, bm, bn = data.shape
-    B, n = x.shape
+    n, B = x.shape
     Mb = tile_ptr.numel() - 1
     if out is None:
         out = torch.empty((B, Mb * bm), dtype=torch.float32,

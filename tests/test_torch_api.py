@@ -277,7 +277,7 @@ def test_split_psum_plain_matches_pallas(monster, ns):
     spl = r_ops.split_from_csr(A, ns)
     got = spmv_split.split_psum(torch.from_numpy(spl.vals),
                                 torch.from_numpy(spl.cols),
-                                torch.from_numpy(x)[None])
+                                torch.from_numpy(x)[:, None])
     want = r_split_psum_pallas(spl.vals, spl.cols, jnp.asarray(x),
                                interpret=True)
     _close(got[0], want, ORACLE_TOL)
@@ -304,7 +304,7 @@ def test_tile_walk_plain_matches_pallas(bm):
     x = np.random.default_rng(1).standard_normal(300).astype(np.float32)
     got = spmv_tile.tile_walk_spmv(
         torch.from_numpy(t.data), torch.from_numpy(t.tile_cols),
-        torch.from_numpy(t.tile_ptr), torch.from_numpy(x)[None])
+        torch.from_numpy(t.tile_ptr), torch.from_numpy(x)[:, None])
     c, tid, bc = r_ops._tile_walk_tables(t)
     xp = np.zeros(3 * 128, np.float32)
     xp[:300] = x

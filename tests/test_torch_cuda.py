@@ -19,8 +19,8 @@ from repro_torch.core.sparse_matrix import csr_from_coo, csr_matvec, \
     csr_to_bcsr
 from repro_torch.core.spmv import SpmvPlan
 from repro_torch.data import matrices as mats
-from repro_torch.kernels import _lib, ops, spmv_ell, spmv_seg, spmv_split, \
-    spmv_tile
+from repro_torch.kernels import _lib, exchange, ops, spmv_ell, spmv_seg, \
+    spmv_split, spmv_tile
 
 from test_torch_split_fixup import split_fixup_case
 
@@ -113,7 +113,7 @@ def test_split_psum_and_split_spmv_on_card(device, ns):
     vals, cols = (torch.from_numpy(a).to(device) for a in (spl.vals,
                                                           spl.cols))
     x = _x(A.ncols, 3)
-    xb = torch.from_numpy(x.T.copy()).to(device)
+    xb = torch.from_numpy(x).to(device)
     _card_and_plain(spmv_split.split_psum, spmv_split.split_psum_plain,
                     (vals, cols, xb), (vals.abs(), cols, xb.abs()))
     y = ops.split_spmv(spl, x, device=device)
@@ -149,7 +149,7 @@ def test_tile_walk_and_tile_spmv_on_card(device, bm):
     data, tcols, tptr, mask = (torch.from_numpy(a).to(device) for a in (
         t.data, t.tile_cols, t.tile_ptr, t.mask))
     x = _x(A.ncols, 3)
-    xb = torch.from_numpy(x.T.copy()).to(device)
+    xb = torch.from_numpy(x).to(device)
     _card_and_plain(
         lambda *a: spmv_tile.tile_walk_spmv(*a, mask=mask),
         spmv_tile.tile_walk_spmv_plain, (data, tcols, tptr, xb),
@@ -164,7 +164,7 @@ def test_tile_walk_and_tile_spmv_on_card(device, bm):
 
 def contrib_case(B, *, shared_x=False, seed=0, Rb=40, Lx=300):
     """``tile_contrib``'s flat operands on the CPU, as the executor stacks
-    them: data (4, Tp, 8, 128), xcol, brow, tile_ptr, x ((1 or 4), B, Lx),
+    them: data (4, Tp, 8, 128), xcol, brow, tile_ptr, x ((1 or 4), Lx, B),
     the listed shards ``sids = [2, 1, 0]``, ``rb_used`` and Rb.
 
     Shard 0 has a block row of 64 tiles, empty block rows among its others
@@ -194,6 +194,7 @@ def contrib_case(B, *, shared_x=False, seed=0, Rb=40, Lx=300):
         brow[s, :n] = np.repeat(np.arange(Rb), counts[s])
     tile_ptr = np.stack([np.searchsorted(b, np.arange(Rb + 1)) for b in brow])
     x = rng.standard_normal((1 if shared_x else 4, B, Lx)).astype(np.float32)
+    x = np.ascontiguousarray(x.transpose(0, 2, 1))              # batch-minor
     sids = torch.tensor([2, 1, 0], dtype=torch.int32)
     return ([torch.from_numpy(a) for a in (data, xcol, brow,
                                            tile_ptr.astype(np.int32), x)]
@@ -214,7 +215,7 @@ def test_tile_contrib_on_card(device, B, shared_x):
     rows = sids.long()
 
     def contrib(v, rb=rb_used):
-        out = torch.full((4, v.shape[1], Rb * 8), float("nan"), device=device)
+        out = torch.full((4, v.shape[2], Rb * 8), float("nan"), device=device)
         return spmv_tile.tile_contrib(*args, v, sd, rb_used=rb, out=out)
     _lib.reset_launch_counts()
     got = contrib(xd).cpu()
@@ -249,10 +250,11 @@ def test_tile_contrib_rejects_unaligned_operands(device):
 
 def _columns_match_single(kernel, xb, col_dim):
     """Every column of the batched call equals the single-vector call on
-    it, bitwise; xb is batch-major with the batch at ``col_dim``."""
+    it, bitwise; xb is batch-minor (its last dimension the batch) and the
+    result has the batch at ``col_dim``."""
     got = kernel(xb)
-    for b in range(xb.shape[col_dim]):
-        one = kernel(xb.narrow(col_dim, b, 1).contiguous())
+    for b in range(xb.shape[-1]):
+        one = kernel(xb[..., b:b + 1].contiguous())
         assert torch.equal(got.narrow(col_dim, b, 1), one)
 
 
@@ -272,7 +274,7 @@ def test_tile_walk_reads_only_occupied_cells(device, bm, B):
     data, tcols, tptr, mask = (torch.from_numpy(a).to(device) for a in (
         t.data, t.tile_cols, t.tile_ptr, t.mask))
     x = _x(A.ncols, B)
-    xb = torch.from_numpy(x.T.copy()).to(device)
+    xb = torch.from_numpy(x).to(device)
 
     def walk(v):
         return spmv_tile.tile_walk_spmv(data, tcols, tptr, v, mask=mask)
@@ -282,9 +284,9 @@ def test_tile_walk_reads_only_occupied_cells(device, bm, B):
     _columns_match_single(walk, xb, 0)
     # CSR semantics: a non-finite x in an unoccupied cell is never read
     poisoned = xb.clone()
-    poisoned[:, hole] = float("inf")
+    poisoned[hole] = float("inf")
     zeroed = xb.clone()
-    zeroed[:, hole] = 0.0
+    zeroed[hole] = 0.0
     assert torch.equal(walk(poisoned), walk(zeroed))
 
 
@@ -544,8 +546,7 @@ def test_seg_psum_on_card(device, L):
     cols = torch.from_numpy(np.stack([seg.cols, seg.cols])).to(device)
     sids = torch.tensor([1, 0], dtype=torch.int32, device=device)
     for Sx in (2, 1):
-        x = torch.from_numpy(np.ascontiguousarray(np.stack(
-            [_x(A.ncols, 11).T] * Sx))).to(device)
+        x = torch.from_numpy(np.stack([_x(A.ncols, 11)] * Sx)).to(device)
         _card_and_plain(spmv_seg.seg_psum, spmv_seg.seg_psum_plain,
                         (vals, cols, x, sids),
                         (vals.abs(), cols, x.abs(), sids))
@@ -607,12 +608,98 @@ def test_seg_piece_sums_equal_the_two_kernel_path(device, name, B):
             xbuf, 1)
 
 
+@pytest.mark.parametrize("B,aligned", [(8, True), (3, True), (8, False)])
+def test_seg_scans_read_x_rows_on_card(device, B, aligned):
+    # the banded program's remote pass: at B = 8 x's rows take 16-byte
+    # loads, at B = 3, or from an x 4 bytes off 16, 4-byte ones.  seg_psum
+    # within 1e-5 of its plain version; seg_piece_sums' d bitwise seg_psum's
+    # difference at each real piece; each column of both bitwise the
+    # one-column launch, which reads x as the batch-major kernels did
+    A, plan = SEG_PROGRAMS["banded"]()
+    prog = P.lower(A, plan)
+    run = P.make_program_spmv_fn(prog, device=device)
+    T, sids = run.operands, run.families["seg"]
+    _, xg = run.buffers(torch.from_numpy(prog.x_to_device(
+        _x(A.ncols, B))).to(device))
+    if not aligned:
+        moved = torch.empty(xg.numel() + 1, device=device)[1:].view(xg.shape)
+        moved.copy_(xg)
+        assert moved.data_ptr() % 16
+        xg = moved
+    vals, cols, pcs, cptr = (T["rem_" + k] for k in (
+        "seg_vals", "seg_cols", "seg_pieces", "seg_chunk_ptr"))
+    _card_and_plain(spmv_seg.seg_psum, spmv_seg.seg_psum_plain,
+                    (vals, cols, xg, sids), (vals.abs(), cols, xg.abs(), sids))
+
+    def psum(v):
+        return spmv_seg.seg_psum(vals, cols, v, sids)
+
+    def diffs(v):
+        out = torch.zeros((len(sids), v.shape[2], pcs.shape[1]),
+                          device=device)
+        return spmv_seg.seg_piece_sums(vals, cols, v, pcs, cptr, sids,
+                                       out=out)
+    _columns_match_single(psum, xg, 1)
+    _columns_match_single(diffs, xg, 1)
+    ps, d = psum(xg), diffs(xg)
+    C = vals.shape[1]
+    for k, sid in enumerate(sids.tolist()):
+        p0, p1 = int(cptr[sid, 0]), int(cptr[sid, C])
+        chunk, lo, hi = pcs[sid, p0:p1, :3].long().unbind(1)
+        h = ps[k][:, chunk, hi]
+        want = torch.where(lo > 0, h - ps[k][:, chunk, (lo - 1).clamp(min=0)],
+                           h)
+        real = lo <= hi
+        assert torch.equal(d[k][:, p0:p1][:, real], want[:, real])
+
+
+def test_batch_minor_buffers_on_card(device):
+    # the executor's local buffer is the caller's (S, per, 8) x itself, no
+    # copy; the exchange's is (Sx, Lx, 8); the graphed B = 8 call is
+    # bitwise the eager call, each column bitwise the B = 1 call
+    A, plan = SEG_PROGRAMS["banded"]()
+    prog = P.lower(A, plan)
+    eager = P.make_program_spmv_fn(prog, device=device)
+    graphed = P.make_program_spmv_fn(prog, device=device, graphs=True)
+    xs = torch.from_numpy(prog.x_to_device(_x(A.ncols, 8))).to(device)
+    xb, xg = eager.buffers(xs)
+    assert xb.data_ptr() == xs.data_ptr() and xb.shape == xs.shape
+    assert xg.shape[2] == 8 and xg.is_contiguous()
+    y = eager(xs)
+    assert torch.equal(graphed(xs), y)
+    assert torch.equal(graphed(xs.clone()), y)
+    for b in range(8):
+        assert torch.equal(y[..., b], eager(xs[..., b].contiguous()))
+
+
+@pytest.mark.parametrize("B,aligned", [(1, True), (3, True), (8, True),
+                                       (16, True), (8, False)])
+def test_gather_rows_on_card(device, B, aligned):
+    # the exchange's row gather: bitwise advanced indexing, a 2-D index
+    # with repeats; 16-byte rows at B % 4 == 0 from aligned buffers, else
+    # 4-byte ones (B = 3, or x 4 bytes off 16)
+    x = torch.from_numpy(_x(5000, B)).to(device)
+    if not aligned:
+        moved = torch.empty(x.numel() + 1, device=device)[1:].view(x.shape)
+        moved.copy_(x)
+        assert moved.data_ptr() % 16
+        x = moved
+    g = torch.Generator().manual_seed(B)
+    index = torch.randint(0, 5000, (3, 7001), generator=g).to(device)
+    _lib.reset_launch_counts()
+    got = exchange.gather_rows(x, index)
+    torch.cuda.synchronize()
+    assert _lib.launch_counts["gather_rows"] == 1
+    assert got.shape == (3, 7001, B)
+    assert torch.equal(got, x[index])
+
+
 @pytest.mark.parametrize("kernels", ["seg", "split", "seg+split"])
 def test_each_family_launches_its_own_kernels(device, kernels):
     # the seg family: seg_piece_sums and the fix-up, never seg_psum; the
     # split family: seg_psum and the fused fix-up and combine, one launch
     # a pass, never the partials path (seg_fixup's NS outputs and
-    # split_combine)
+    # split_combine); the exchange's row gather, gather_rows
     A = mats.powerlaw_tail(4096, 4096 * 16, n_monster=4, seed=0)
     fams = kernels.split("+")
     prog = P.lower(A, SpmvPlan(num_shards=4, shard_kernels=tuple(
@@ -623,7 +710,7 @@ def test_each_family_launches_its_own_kernels(device, kernels):
            .to(device))
     torch.cuda.synchronize()
     launched = {k for k, v in _lib.launch_counts.items() if v}
-    want = set()
+    want = {"gather_rows"}                      # the exchange
     if "seg" in fams:
         want |= {"seg_piece_sums", "seg_fixup"}
     if "split" in fams:
@@ -651,8 +738,7 @@ def test_long_chunk_psums_on_card(device, L, B):
     vals = torch.from_numpy(np.stack([seg.vals, -seg.vals])).to(device)
     cols = torch.from_numpy(np.stack([seg.cols, seg.cols])).to(device)
     sids = torch.tensor([1, 0], dtype=torch.int32, device=device)
-    x = torch.from_numpy(np.ascontiguousarray(np.stack(
-        [_x(A.ncols, B).T] * 2))).to(device)
+    x = torch.from_numpy(np.stack([_x(A.ncols, B)] * 2)).to(device)
     _card_and_plain(spmv_seg.seg_psum, spmv_seg.seg_psum_plain,
                     (vals, cols, x, sids), (vals.abs(), cols, x.abs(), sids))
     _columns_match_single(lambda v: spmv_seg.seg_psum(vals, cols, v, sids),
@@ -660,7 +746,7 @@ def test_long_chunk_psums_on_card(device, L, B):
     spl = ops.split_from_csr(A, 3, chunk=L)
     NS, Cs, _ = spl.vals.shape
     sv, sc = (torch.from_numpy(a).to(device) for a in (spl.vals, spl.cols))
-    xb = torch.from_numpy(_x(A.ncols, B).T.copy()).to(device)
+    xb = torch.from_numpy(_x(A.ncols, B)).to(device)
     _card_and_plain(spmv_split.split_psum, spmv_split.split_psum_plain,
                     (sv, sc, xb), (sv.abs(), sc, xb.abs()))
     flat = spmv_seg.seg_psum(sv.view(1, NS * Cs, L), sc.view(1, NS * Cs, L),
@@ -710,7 +796,7 @@ def flat_tile_case(t, n, B, *, shared_x=False, seed=0):
     real ones hold NaN at block row Rb = Mb + 3, so ``rb_used`` < Rb.  A
     lane of zero cells reads x position 0, the others x at the tile's
     block column, clamped below n.  Returns data, xcol, brow, tile_ptr,
-    x ((1 or 4), B, n), sids = [2, 1, 0], rb_used and Rb."""
+    x ((1 or 4), n, B), sids = [2, 1, 0], rb_used and Rb."""
     T, bm, bn = t.data.shape
     Mb = len(t.tile_ptr) - 1
     Rb = Mb + 3
@@ -730,6 +816,7 @@ def flat_tile_case(t, n, B, *, shared_x=False, seed=0):
     rb_used = int(t.tile_rows.max()) + 1
     x = np.random.default_rng(seed).standard_normal(
         (1 if shared_x else 4, B, n)).astype(np.float32)
+    x = np.ascontiguousarray(x.transpose(0, 2, 1))              # batch-minor
     return ([torch.from_numpy(a) for a in (data, xcol, brow, tile_ptr, x)]
             + [torch.tensor([2, 1, 0], dtype=torch.int32), rb_used, Rb])
 
@@ -745,7 +832,7 @@ def test_tile_walks_at_any_shape_on_card(device, bm, bn, B):
     assert (np.diff(t.tile_ptr) == 0).any()
     data, tcols, tptr, mask = (torch.from_numpy(a).to(device) for a in (
         t.data, t.tile_cols, t.tile_ptr, t.mask))
-    xb = torch.from_numpy(_x(A.ncols, B).T.copy()).to(device)
+    xb = torch.from_numpy(_x(A.ncols, B)).to(device)
     for m in (mask, None):
         def walk(v, m=m):
             return spmv_tile.tile_walk_spmv(data, tcols, tptr, v, mask=m)
@@ -774,7 +861,7 @@ def test_tile_contrib_at_any_shape_on_card(device, bm, bn, B, shared_x):
     xd, sd, rows = x.to(device), sids.to(device), sids.long()
 
     def contrib(v, rb=rb_used):
-        out = torch.full((4, v.shape[1], Rb * bm), float("nan"),
+        out = torch.full((4, v.shape[2], Rb * bm), float("nan"),
                          device=device)
         return spmv_tile.tile_contrib(*args, v, sd, rb_used=rb, out=out)
     _lib.reset_launch_counts()

@@ -63,12 +63,12 @@ def _close(got, want, scale=None):
 
 
 def _bitwise_columns(fn, xbuf, sids):
-    """fn(x) on a (Sx, B, Lx) buffer: every batched column of the shards
-    ``sids`` equals the per-vector call, bitwise."""
+    """fn(x) on a batch-minor (Sx, Lx, B) buffer: every batched column of
+    the shards ``sids`` equals the per-vector call, bitwise."""
     rows = sids.long()
     yb = fn(xbuf)[rows]
-    for b in range(xbuf.shape[1]):
-        y1 = fn(xbuf[:, b:b + 1].contiguous())[rows]
+    for b in range(xbuf.shape[2]):
+        y1 = fn(xbuf[..., b:b + 1].contiguous())[rows]
         assert torch.equal(yb[:, b], y1[:, 0])
 
 
@@ -89,7 +89,7 @@ def test_ell_plain_matches_pallas_and_oracle(hyb_case):
     for p in sids.tolist():
         d, c = ops["rem_ell_data"][p], ops["rem_ell_cols"][p]
         assert (d == 0).any()                     # padded slots present
-        xv = jnp.asarray(xg[p, 0].numpy())
+        xv = jnp.asarray(xg[p, :, 0].numpy())
         want = r_ell_pallas(d, c, xv, interpret=True, tile_m=8, tile_w=128)
         _close(out[p, 0], want, scale[p, 0])
         _close(out[p, 0], r_ref.ell_spmv_ref(d, c, xv), scale[p, 0])
@@ -104,7 +104,7 @@ def test_hyb_overflow_matches_reference(hyb_case):
                                      "ovf_cols", "ovf_vals", "ovf_ptr")]
         out = t_ops.hyb_stacked(*args, xbuf, sids)
         for p in sids.tolist():
-            xv = jnp.asarray(xbuf[p, 0].numpy())
+            xv = jnp.asarray(xbuf[p, :, 0].numpy())
             d, c, orow, ocol, oval = (ops[pre + k][p] for k in (
                 "ell_data", "ell_cols", "ovf_rows", "ovf_cols", "ovf_vals"))
             # the reference executor's hyb branch (program.py:863-867)
@@ -134,7 +134,7 @@ def test_seg_psum_plain_matches_pallas_and_oracle(monster_case):
                               T["rem_seg_cols"], torch.abs(xg), sids)
     for k, p in enumerate(sids.tolist()):
         v, c = ops["rem_seg_vals"][p], ops["rem_seg_cols"][p]
-        xv = jnp.asarray(xg[p, 0].numpy())
+        xv = jnp.asarray(xg[p, :, 0].numpy())
         want = r_seg_psum_pallas(v, c, xv, interpret=True)
         _close(psum[k, 0], want, scale[k, 0])
         _close(psum[k, 0], r_ref.seg_psum_ref(v, c, xv), scale[k, 0])
@@ -146,7 +146,7 @@ def test_seg_fixup_plain_matches_reference_fixup(monster_case):
     T, sids = run.operands, run.families["seg"]
     p = int(sids[0])
     pcs = ops["rem_seg_pieces"][p]
-    xv = jnp.asarray(xg[p, 0].numpy())
+    xv = jnp.asarray(xg[p, :, 0].numpy())
     psum_j = r_seg_psum_pallas(ops["rem_seg_vals"][p], ops["rem_seg_cols"][p],
                                xv, interpret=True)
     want = r_ops._seg_fixup(psum_j, pcs[:, 0], pcs[:, 1], pcs[:, 2],
@@ -169,7 +169,7 @@ def test_seg_family_matches_reference(monster_case):
         want = r_ops.seg_spmv(
             (ops["rem_seg_vals"][p], ops["rem_seg_cols"][p],
              ops["rem_seg_rows"][p], pc[:, 0], pc[:, 1], pc[:, 2], pc[:, 3]),
-            jnp.asarray(xg[p, 0].numpy()), num_rows=ops["R"],
+            jnp.asarray(xg[p, :, 0].numpy()), num_rows=ops["R"],
             use_kernel=True, interpret=True)
         _close(out[p, 0], want)
     _bitwise_columns(lambda x: t_ops.seg_stacked(*args, x, sids), xg, sids)
@@ -189,7 +189,7 @@ def test_split_family_matches_reference(monster_case):
         want = r_ops.split_flat_spmv(
             ops["rem_seg_vals"][p], ops["rem_seg_cols"][p],
             ops["rem_seg_rows"][p], ops["rem_seg_pieces"][p],
-            jnp.asarray(xg[p, 0].numpy()), num_rows=ops["R"], num_splits=NS,
+            jnp.asarray(xg[p, :, 0].numpy()), num_rows=ops["R"], num_splits=NS,
             use_kernel=True, interpret=True)
         _close(out[p, 0], want)
     _bitwise_columns(lambda x: t_ops.split_stacked(
@@ -228,7 +228,7 @@ def test_tile_family_matches_pallas_and_oracle(tile_case):
         for p in sids.tolist():
             d, xc, br = (ops[pre + k][p] for k in ("tile_data", "tile_xcol",
                                                    "tile_brow"))
-            xv = jnp.asarray(xbuf[p, 0].numpy())
+            xv = jnp.asarray(xbuf[p, :, 0].numpy())
             want = r_ops.tile_flat_spmv(d, xc, br, xv, num_rows=ops["R"],
                                         use_kernel=True, interpret=True)
             _close(out[p, 0], want, scale[p, 0])

@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import _lib
-from repro_torch.kernels import spmv_ell, spmv_seg, spmv_split, spmv_tile
+from repro_torch.kernels import exchange, spmv_ell, spmv_seg, spmv_split, \
+    spmv_tile
 
 
 class FakeCuda:
@@ -95,27 +96,29 @@ S, R, W, C, L, B = 2, 8, 4, 3, 4, 1
 WRAPPERS = {
     "ell_spmv": lambda: spmv_ell.ell_spmv(
         _meta(S, R, W), _i32(S, R, W), _i32(S, 3), _i32(S, 3), _meta(S, 3),
-        _i32(S, R + 1), _meta(1, B, 16), _i32(S)),
+        _i32(S, R + 1), _meta(1, 16, B), _i32(S)),
     "seg_psum": lambda: spmv_seg.seg_psum(
-        _meta(S, C, L), _i32(S, C, L), _meta(1, B, 16), _i32(S)),
+        _meta(S, C, L), _i32(S, C, L), _meta(1, 16, B), _i32(S)),
     "seg_fixup": lambda: spmv_seg.seg_fixup(
         _meta(S, B, C, L), _i32(S, 5, 5), _i32(S, R + 1), _i32(S), _i32(S),
         num_splits=1, out=_meta(S, B, R)),
     "split_psum": lambda: spmv_split.split_psum(
-        _meta(2, C, L), _i32(2, C, L), _meta(B, 16)),
+        _meta(2, C, L), _i32(2, C, L), _meta(16, B)),
     "split_combine": lambda: spmv_split.split_combine(
         _meta(S, B, 2, R), _i32(S), out=_meta(S, B, R)),
     "tile_contrib": lambda: spmv_tile.tile_contrib(
         _meta(S, 3, 8, 16), _i32(S, 3, 16), _i32(S, 3), _i32(S, 3),
-        _meta(1, B, 32), _i32(S)),
+        _meta(1, 32, B), _i32(S)),
     "tile_walk_spmv": lambda: spmv_tile.tile_walk_spmv(
-        _meta(3, 8, 16), _i32(3), _i32(3), _meta(B, 32)),
+        _meta(3, 8, 16), _i32(3), _i32(3), _meta(32, B)),
     "seg_piece_sums": lambda: spmv_seg.seg_piece_sums(
-        _meta(S, C, L), _i32(S, C, L), _meta(1, B, 16), _i32(S, 5, 5),
+        _meta(S, C, L), _i32(S, C, L), _meta(1, 16, B), _i32(S, 5, 5),
         _i32(S, C + 1), _i32(S)),
     "split_fixup": lambda: spmv_split.split_fixup(
         _meta(S, B, C, L), _i32(S, 5, 5), _i32(S, R + 1), _i32(S),
         num_splits=2, out=_meta(S, B, R)),
+    "gather_rows": lambda: exchange.gather_rows(
+        _meta(16, B), _meta(S, 5, dtype=torch.int64)),
 }
 #: Wrappers that launch a second kernel of one counted name.
 MORE_WRAPPERS = {

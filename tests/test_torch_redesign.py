@@ -222,7 +222,7 @@ def test_ell_read_set_matches_reference(plan):
     ops = t_program._device_operands(tp)
     run = t_program.make_program_spmv_fn(tp, device="cpu")
     x = np.random.default_rng(0).standard_normal(A.ncols).astype(np.float32)
-    xb, xg = (b[:, 0].numpy() for b in run.buffers(tp.x_to_device(x)))
+    xb, xg = (b[..., 0].numpy() for b in run.buffers(tp.x_to_device(x)))
     G = int(re.search(r"constexpr int G = (\d+);",
                       (_lib.CSRC / "spmv_ell.cu").read_text()).group(1))
     y = {}

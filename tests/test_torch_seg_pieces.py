@@ -115,7 +115,7 @@ def test_piece_sums_equal_the_scan_and_fixup(kind, in_table, B):
     x = np.random.default_rng(2).standard_normal((S, B, 256)) \
         .astype(np.float32)
     x[:, :, 0] = 0.0
-    x = torch.from_numpy(x)
+    x = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1)))
     sids = torch.tensor([1, 0], dtype=torch.int32)
     n_real = ptr[:, R]
     counts = ptr[0, 1:] - ptr[0, :-1]
@@ -147,7 +147,7 @@ def test_piece_sums_equal_the_scan_and_fixup(kind, in_table, B):
     if kind == "negative_zero":                   # row 1's one product: -0
         lone = int(ptr[0, 1])
         ch, lo = int(pieces[0, lone, 0]), int(pieces[0, lone, 1])
-        assert lo == 0 and (vals[0, ch, 0] * x[0, :, 0]).signbit().all()
+        assert lo == 0 and (vals[0, ch, 0] * x[0, 0]).signbit().all()
         assert (d[1, :, lone] == 0).all() and (got[0, :, 1] == 0).all()
         assert not got[0, :, 1].signbit().any()   # the sum from +0
     # the stacked op, with the operand and with the ranges built anew

@@ -245,6 +245,7 @@ def test_fixup_schedule_matches_reference_fixup(name, ns):
     assert (ptr[1:] - ptr[:-1]).max() > LONG_ROW
     x = np.random.default_rng(0).standard_normal((1, B, A.ncols)) \
         .astype(np.float32)
+    x = np.ascontiguousarray(x.transpose(0, 2, 1))              # batch-minor
     sid = torch.zeros(1, dtype=torch.int32)
     psum = spmv_seg.seg_psum_plain(torch.from_numpy(vals[None]),
                                    torch.from_numpy(cols[None]),
@@ -274,7 +275,7 @@ def test_fixup_schedule_on_the_executors_tables():
                                      "piece_ptr")]
         for fam, sids in run.families.items():
             psum = spmv_seg.seg_psum(args[0], args[1], xbuf, sids)
-            n, B, R = sids.numel(), xbuf.shape[1], args[3].shape[1] - 1
+            n, B, R = sids.numel(), xbuf.shape[2], args[3].shape[1] - 1
             ns = 1 if fam == "seg" else int(run.num_splits[pre])
             ids = sids if fam == "seg" else torch.arange(n, dtype=torch.int32)
             shape = (2, B, R) if fam == "seg" else (n, B, ns, R)
@@ -332,7 +333,7 @@ def test_seg_psum_schedule_matches_pallas(name, L):
     np.testing.assert_array_less(err, TOL * (1.0 + np.asarray(scale)))
     plain = spmv_seg.seg_psum_plain(
         torch.from_numpy(f.vals[None]), torch.from_numpy(f.cols[None]),
-        torch.from_numpy(x[None, None]), torch.zeros(1, dtype=torch.int32),
+        torch.from_numpy(x[None, :, None]), torch.zeros(1, dtype=torch.int32),
         torch.empty((1, 1) + f.vals.shape))
     err = np.abs(got - plain[0, 0].numpy()).astype(np.float64)
     np.testing.assert_array_less(err, TOL * (1.0 + np.asarray(scale)))

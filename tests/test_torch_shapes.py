@@ -212,8 +212,8 @@ def test_split_psum_launches_seg_psums_scan():
     seg = (_lib.CSRC / "spmv_seg.cu").read_text()
     body = split[split.index("RT_API int rt_split_psum("):]
     body = body[:body.index("\n}\n")]
-    # one shard (the slab) of C = NS*Cs chunks, x shared (x_stride 0, Lx = n)
-    assert "launch_seg_psum(vals, cols, x, 0, nullptr, 1, C, L, n, B, psum," \
+    # one shard (the slab) of C = NS*Cs chunks, x shared (x_stride 0)
+    assert "launch_seg_psum(vals, cols, x, 0, nullptr, 1, C, L, B, psum," \
         in body
     assert "const int sid = sids ? sids[k] : k;" in seg
     for src in (split, seg, _COMMON):
@@ -228,7 +228,7 @@ def test_split_psum_is_seg_psum_on_the_flat_view(problem, chunk):
     NS, Cs, L = spl.vals.shape
     vals, cols = torch.from_numpy(spl.vals), torch.from_numpy(spl.cols)
     X = np.random.default_rng(6).standard_normal((3, 1024)).astype(np.float32)
-    xb = torch.from_numpy(X)
+    xb = torch.from_numpy(np.ascontiguousarray(X.T))         # (n, B)
     got = spmv_split.split_psum(vals, cols, xb)             # (B, NS, Cs, L)
     flat = spmv_seg.seg_psum_plain(
         vals.view(1, NS * Cs, L), cols.view(1, NS * Cs, L), xb[None],
@@ -704,6 +704,7 @@ def test_general_contrib_schedule(bm, bn):
     data, xcol, brow, ptr, x, sids, rb_used, Rb = (
         v.numpy() if isinstance(v, torch.Tensor) else v
         for v in flat_tile_case(t, n, COLUMNS))
+    x = np.ascontiguousarray(x.transpose(0, 2, 1))  # (S, B, n): a column a row
     ptr = ptr.astype(np.int64)
     Tp = data.shape[1]
 

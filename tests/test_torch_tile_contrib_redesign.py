@@ -140,9 +140,9 @@ def test_warps_only_below_rb_used(n_sids, Rb, rb_used, B):
 def emulate_contrib(data, xcol, tile_ptr, x, sids, rb_used, out):
     """The kernel's launch over ``out`` (numpy, written in place): returns
     the (k, mb) items walked and, per output entry, how often it was
-    written."""
+    written.  ``x`` is batch-minor, (1 or S, Lx, B)."""
     S, Tp, bm, bn = data.shape
-    B, Rb = x.shape[1], tile_ptr.shape[1] - 1
+    B, Rb = x.shape[2], tile_ptr.shape[1] - 1
     R = Rb * bm
     writes = np.zeros(out.shape, int)
     walked = []
@@ -151,15 +151,15 @@ def emulate_contrib(data, xcol, tile_ptr, x, sids, rb_used, out):
         for k, mb in items:
             sid = int(sids[k])
             walked.append((k, mb))
-            xs = x[sid if x.shape[0] > 1 else 0, b0:b0 + nb]    # (nb, Lx)
+            xs = x[sid if x.shape[0] > 1 else 0, :, b0:b0 + nb]  # (Lx, nb)
             lo, hi = int(tile_ptr[sid, mb]), int(tile_ptr[sid, mb + 1])
             # lane l: cells 4l .. 4l+3 of each row, partials (8, 32, nb)
             part = np.zeros((bm, WARP, nb), np.float32)
             for t in range(lo, hi):
                 d = data[sid, t].reshape(bm, WARP, 4)
-                xg = xs[:, xcol[sid, t]].reshape(nb, WARP, 4)
+                xg = xs[xcol[sid, t]].reshape(WARP, 4, nb)  # a cell's row
                 for j in range(4):
-                    part = _fma(part, d[:, :, j, None], xg[:, :, j].T[None])
+                    part = _fma(part, d[:, :, j, None], xg[:, j][None])
             for off in (16, 8, 4, 2, 1):                 # warp_sum's order
                 part = np.float32(part + part[:, lanes ^ off])
             rows = slice(mb * bm, (mb + 1) * bm)
@@ -180,7 +180,7 @@ def reference(data, xcol, brow, x, sids, R):
     block-row scatter, per listed shard, all columns: (n, B, R)."""
     y = []
     for sid in sids:
-        xv = x[sid if x.shape[0] > 1 else 0].T                  # (Lx, B)
+        xv = x[sid if x.shape[0] > 1 else 0]                    # (Lx, B)
         y.append(np.asarray(r_ops.tile_flat_spmv(
             data[sid], xcol[sid], brow[sid], xv, num_rows=R,
             use_kernel=True, interpret=True)).T)
@@ -220,7 +220,7 @@ def test_emulation_matches_reference(B, shared_x):
     # each column is the single-vector call's arithmetic, bitwise
     for b in range(B):
         one = np.full((S, 1, R), np.nan, np.float32)
-        emulate_contrib(data, xcol, tile_ptr, x[:, b:b + 1], sids, rb_used,
+        emulate_contrib(data, xcol, tile_ptr, x[..., b:b + 1], sids, rb_used,
                         one)
         assert np.array_equal(one[sids][:, 0], got[:, b])
 

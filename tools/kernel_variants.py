@@ -39,7 +39,15 @@ launches with CUDA events (replayed as CUDA graphs), two turns in a row:
   ``split_psum`` (the same scan, on the flattened slab with one shared x),
   there also with every column index 0 (``cols=0``: the same loads and
   stores, but every x gather hits one sector, so the gap to the real
-  case is what the scattered gathers cost).
+  case is what the scattered gathers cost);
+* ``rows``: ``spmv_seg.cu``'s ``ROWS_AHEAD`` (steps whose x rows a
+  batched scan gathers before it scans them): 1, 2, 4, by its
+  ``SCAN_BLOCKS`` (blocks an SM the batched scans are built for): 1, 4,
+  5, on both passes'
+  ``seg_piece_sums`` and ``seg_psum`` launches of audikw_1's plan on a
+  half-size stand-in (``banded(471500, 38.8M, 4715)``, 8 shards, halo;
+  its remote x buffer at B = 8 is twice the L2), at B = 8 (16-byte row
+  loads) and B = 3 (4-byte ones); each variant bitwise the library's.
 
 Each for one vector and an (N, 8) block.  Every variant is first checked
 against the kernel's plain version (rtol = atol = 1e-5 on |A|·|x|; the
@@ -178,7 +186,7 @@ def contrib_cases(torch, dev, rng, phases):
                              xbuf.data_ptr(), _lib.x_stride(xbuf),
                              sids.data_ptr(), sids.numel(), data.shape[1],
                              ptr.shape[1] - 1, rb, 8, 128, xbuf.shape[2],
-                             xbuf.shape[1], out.data_ptr(),
+                             out.data_ptr(),
                              torch.cuda.current_stream().cuda_stream)
                     if err:
                         raise RuntimeError(f"launch failed: cudaError {err}")
@@ -207,14 +215,14 @@ def tile_cases(torch, dev, rng):
         dev) for a in (t.data, t.tile_cols, t.tile_ptr, t.mask))
     Mb, n = tptr.numel() - 1, t.shape[1]
     for B in (1, 8):
-        xb = torch.from_numpy(rng.standard_normal((B, n)).astype(
-            np.float32)).to(dev)
+        xb = torch.from_numpy(np.ascontiguousarray(rng.standard_normal(
+            (B, n)).astype(np.float32).T)).to(dev)               # (n, B)
         y = torch.empty((B, Mb * t.bm), device=dev)
 
         def launch(fn, x=xb, out=y):
             err = fn(data.data_ptr(), mask.data_ptr(), tcols.data_ptr(),
                      tptr.data_ptr(), x.data_ptr(), Mb, t.bm, t.bn, n,
-                     x.shape[0], out.data_ptr(),
+                     x.shape[1], out.data_ptr(),
                      torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"launch failed: cudaError {err}")
@@ -256,15 +264,15 @@ def general_cases(torch, dev, rng):
         T, bm, bn = data.shape
         Mb = tptr.numel() - 1
         for B in (1, 8):
-            xb = torch.from_numpy(rng.standard_normal((B, n)).astype(
-                np.float32)).to(dev)
+            xb = torch.from_numpy(np.ascontiguousarray(rng.standard_normal(
+                (B, n)).astype(np.float32).T)).to(dev)           # (n, B)
             y = torch.empty((B, Mb * bm), device=dev)
 
             def launch(fn, x=xb, out=y):
                 err = pick(fn)(data.data_ptr(),
                                None if mask is None else mask.data_ptr(),
                                tcols.data_ptr(), tptr.data_ptr(), x.data_ptr(),
-                               Mb, bm, bn, n, x.shape[0], out.data_ptr(),
+                               Mb, bm, bn, n, x.shape[1], out.data_ptr(),
                                stream())
                 if err:
                     raise RuntimeError(f"launch failed: cudaError {err}")
@@ -309,14 +317,14 @@ def general_cases(torch, dev, rng):
     sids = torch.zeros(1, dtype=torch.int32, device=dev)
     for const, fns in cells.items():
         for B in (1, 8):
-            x = torch.from_numpy(rng.standard_normal((1, B, n)).astype(
-                np.float32)).to(dev)
+            x = torch.from_numpy(np.ascontiguousarray(rng.standard_normal(
+                (1, B, n)).astype(np.float32).transpose(0, 2, 1))).to(dev)
             out = torch.empty((1, B, Rb * bm), device=dev)
 
             def launch(fn, x=x, out=out):
                 err = fn[1](data.data_ptr(), xcol.data_ptr(), ptr.data_ptr(),
                             x.data_ptr(), 0, sids.data_ptr(), 1, T, Rb, Rb,
-                            bm, bn, n, x.shape[1], out.data_ptr(), stream())
+                            bm, bn, x.shape[2], out.data_ptr(), stream())
                 if err:
                     raise RuntimeError(f"launch failed: cudaError {err}")
 
@@ -348,7 +356,7 @@ def ell_cases(torch, dev, rng, phases):
                     run.families[fam]
 
     def time_sets(case, sets):
-        outs = [torch.empty((a[0].shape[0], x.shape[1], a[0].shape[1]),
+        outs = [torch.empty((a[0].shape[0], x.shape[2], a[0].shape[1]),
                             device=dev) for a, _, x, _ in sets]
 
         def launch(fn, sets=sets, outs=outs):
@@ -360,7 +368,7 @@ def ell_cases(torch, dev, rng, phases):
                          ovf_vals.data_ptr(), x.data_ptr(), _lib.x_stride(x),
                          sids.data_ptr(), sids.numel(), data.shape[1],
                          data.shape[2], ovf_vals.shape[1], x.shape[2],
-                         x.shape[1], out.data_ptr(),
+                         out.data_ptr(),
                          torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"launch failed: cudaError {err}")
@@ -399,8 +407,8 @@ def ell_cases(torch, dev, rng, phases):
     ptr = torch.zeros((1, data.shape[0] + 1), dtype=torch.int32, device=dev)
     one = torch.zeros(1, dtype=torch.int32, device=dev)
     for B in (1, 8):
-        x = torch.from_numpy(rng.standard_normal((1, B, cop.ncols)).astype(
-            np.float32)).to(dev)
+        x = torch.from_numpy(np.ascontiguousarray(rng.standard_normal(
+            (1, B, cop.ncols)).astype(np.float32).transpose(0, 2, 1))).to(dev)
         time_sets(f"api/ell B={B}",
                   [([data[None], cols[None], z, z, z.float(), ptr], None, x,
                     one)])
@@ -446,7 +454,7 @@ def seg_cases(torch, dev, rng, phases):
             for v, c, x, sids, out in sets:
                 err = fn(v.data_ptr(), c.data_ptr(), x.data_ptr(),
                          _lib.x_stride(x), sids.data_ptr(), sids.numel(),
-                         v.shape[1], v.shape[2], x.shape[2], x.shape[1],
+                         v.shape[1], v.shape[2], x.shape[2],
                          out.data_ptr(), stream())
                 if err:
                     raise RuntimeError(f"launch failed: cudaError {err}")
@@ -507,8 +515,8 @@ def seg_cases(torch, dev, rng, phases):
             pcs, ptr = ops._piece_table(dev, sp * Cs + ch, lo, hi, row, sp,
                                         L, A.nrows)
             for B in (1, 8):
-                xb = torch.from_numpy(rng.standard_normal(
-                    (B, A.ncols)).astype(np.float32)).to(dev)
+                xb = torch.from_numpy(np.ascontiguousarray(rng.standard_normal(
+                    (B, A.ncols)).astype(np.float32).T)).to(dev)  # (n, B)
                 flat = (vals.view(1, NS * Cs, L), cols.view(1, NS * Cs, L))
                 for tag, c in (("", flat[1]),
                                (" cols=0", torch.zeros_like(flat[1]))):
@@ -522,9 +530,68 @@ def seg_cases(torch, dev, rng, phases):
                     torch.empty((1, B, NS, A.nrows), device=dev))])
 
 
+def rows_cases(torch, dev, rng):
+    from repro_torch.core import program as P
+    from repro_torch.core.spmv import SpmvPlan
+    from repro_torch.data import matrices as mats
+    from repro_torch.kernels import _lib, spmv_seg
+
+    consts = ("ROWS_AHEAD", "SCAN_BLOCKS")
+    fns = build("spmv_seg.cu", consts,
+                [(r, m) for r in (1, 2, 4) for m in (1, 4, 5)],
+                ("rt_seg_piece_sums", "rt_seg_psum"))
+    M = 471_500
+    A = mats.banded(M, 38_800_000, M // 100, seed=0)
+    prog = P.lower(A, SpmvPlan(num_shards=8, kernel="seg", exchange="halo"))
+    run = P.make_program_spmv_fn(prog, device=dev)
+    T, sids = run.operands, run.families["seg"]
+    for B in (8, 3):
+        x = rng.standard_normal((A.ncols, B)).astype(np.float32)
+        sets = []
+        for pre, xbuf in zip(("loc_", "rem_"), run.buffers(
+                torch.from_numpy(prog.x_to_device(x)).to(dev))):
+            v, c, pcs, cptr = (T[pre + k] for k in (
+                "seg_vals", "seg_cols", "seg_pieces", "seg_chunk_ptr"))
+            d = torch.zeros((sids.numel(), B, pcs.shape[1]), device=dev)
+            sets.append((v, c, xbuf, pcs, cptr, d, spmv_seg.seg_piece_sums(
+                v, c, xbuf, pcs, cptr, sids, out=torch.zeros_like(d)),
+                spmv_seg.seg_psum(v, c, xbuf, sids)))
+
+        def launch(fn, which):
+            stream = torch.cuda.current_stream().cuda_stream
+            for v, c, x, pcs, cptr, d, _, ps in sets:
+                if which == "seg_piece_sums":
+                    err = fn[0](v.data_ptr(), c.data_ptr(), x.data_ptr(),
+                                _lib.x_stride(x), pcs.data_ptr(),
+                                cptr.data_ptr(), sids.data_ptr(),
+                                sids.numel(), v.shape[1], v.shape[2],
+                                pcs.shape[1], B, d.data_ptr(), stream)
+                else:
+                    err = fn[1](v.data_ptr(), c.data_ptr(), x.data_ptr(),
+                                _lib.x_stride(x), sids.data_ptr(),
+                                sids.numel(), v.shape[1], v.shape[2], B,
+                                ps.data_ptr(), stream)
+                if err:
+                    raise RuntimeError(f"launch failed: cudaError {err}")
+
+        for which in ("seg_piece_sums", "seg_psum"):
+            want = [(s[6].clone(), s[7].clone()) for s in sets]
+
+            def check(what, which=which, want=want):
+                for s, (d, ps) in zip(sets, want):
+                    got, ref = (s[5], d) if which == "seg_piece_sums" \
+                        else (s[7], ps)
+                    if not torch.equal(got, ref):
+                        raise AssertionError(f"{what}: differs from the "
+                                             f"library's {which}")
+            sweep(torch, f"audikw_1/2 {which} B={B}", consts, fns,
+                  lambda fn, which=which: launch(fn, which), check)
+
+
 def main(argv=None) -> int:
     sweeps = {"contrib": contrib_cases, "tile": tile_cases,
-              "general": general_cases, "ell": ell_cases, "seg": seg_cases}
+              "general": general_cases, "ell": ell_cases, "seg": seg_cases,
+              "rows": rows_cases}
     names = (sys.argv[1:] if argv is None else argv) or list(sweeps)
     if set(names) - set(sweeps):
         print(f"kernel_variants: unknown sweep in {names}; choose from "
@@ -543,7 +610,7 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
     phases = None
     for name in names:
-        if name in ("tile", "general"):
+        if name in ("tile", "general", "rows"):
             sweeps[name](torch, dev, rng)
             continue
         if phases is None:

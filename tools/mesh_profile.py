@@ -65,10 +65,10 @@ def bare_collective(torch, dist, group, prog, ops, B, dev):
     S = prog.plan.num_shards
     per = prog.x_layout.padded_length() // S
     if "halo" in prog.plan.resolved_shard_exchanges():
-        send = torch.zeros((S, B, S, ops["halo_H"]), device=dev)
+        send = torch.zeros((S, S, ops["halo_H"], B), device=dev)
         recv = torch.empty_like(send)
         return lambda: dist.all_to_all_single(recv, send, group=group)
-    xb = torch.zeros((S, B, per), device=dev)
+    xb = torch.zeros((S, per, B), device=dev)
     out = torch.empty_like(xb)
     return lambda: P._all_gather(out, xb, group)
 
