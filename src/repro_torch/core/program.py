@@ -981,8 +981,8 @@ def make_program_spmv_fn(program: SpmvProgram, mesh=None,
     ``tracing.recording()`` is true, each call records the span
     ``spmv.call`` and counts ``spmv.calls``, where it found all earlier
     work of this executor done (on the CPU: always) ``spmv.starved``,
-    and, with split shards, the split family's counters (a graph replay
-    as the eager call; :func:`_split_counters`).
+    and, with split, tile or ELL shards, those families' counters (a
+    graph replay as the eager call; :func:`_family_counters`).
     """
     with tracing.span("executor.build"):
         return _build_executor(program, mesh, axis, device, pipeline, graphs)
@@ -1024,7 +1024,7 @@ def _build_executor(program, mesh, axis, device, pipeline, graphs):
     rb_used = {pre: _tile_rows_used(ops[pre + "tile_ptr"][lo:hi], tile_sids)
                for pre in ("loc_", "rem_")}
     num_splits = {"loc_": ops["NS_loc"], "rem_": ops["NS_rem"]}
-    counts = _split_counters(program, T, families.get("split"), lo)
+    counts = _family_counters(program, T, families, lo)
 
     def kernel_pass(pre: str, xbuf):
         y = torch.empty((n, xbuf.shape[2], R), dtype=torch.float32,
@@ -1077,33 +1077,50 @@ def _build_executor(program, mesh, axis, device, pipeline, graphs):
     return run
 
 
-def _split_counters(program: SpmvProgram, T: dict, sids, lo: int):
+#: The kernel families whose shards a recorded call counts, read by the
+#: benchmark's ``split_kb``, ``split_roofline``, ``tile_roofline`` and
+#: ``ell_roofline``.
+_COUNTED_FAMILIES = ("split", "tile", "ell")
+
+
+def _family_counters(program: SpmvProgram, T: dict, families: dict,
+                     lo: int):
     """``counts(B)``: what a recorded call of B columns adds to the
-    counters of the split family, fixed when the executor is built:
-    ``split.scratch_bytes``, the device scratch its two passes allocate
-    (:func:`kops.split_scratch_bytes`), and its shards' compulsory
-    operands, ``split.nnz`` and ``split.rows`` (theirs, in both passes
-    together), ``split.x_elems`` (the distinct columns they read, times
-    B) and ``split.y_elems`` (their rows, times B).  Nothing without
-    split shards."""
-    if sids is None:
-        return _no_counters
-    stages = [program.stages[lo + k] for k in sids.tolist()]
+    counters of each family of :data:`_COUNTED_FAMILIES` that the block
+    runs, fixed when the executor is built: ``<family>.nnz`` and
+    ``<family>.rows`` (its shards', in both passes together),
+    ``<family>.x_elems`` (the distinct columns they read, times B) and
+    ``<family>.y_elems`` (their rows, times B); besides, ``tile.tiles``
+    (the tile stages' tiles) and ``split.scratch_bytes`` (the device
+    scratch the split family's two passes allocate,
+    :func:`kops.split_scratch_bytes`).  Nothing without such shards."""
     A = program.matrix
-    read = np.zeros(A.ncols, dtype=bool)
-    for st in stages:
-        read[A.col_index[A.row_ptr[st.row_offset]:
-                         A.row_ptr[st.row_offset + st.rows]]] = True
-    nnz = sum(st.nnz for st in stages)
-    rows = sum(st.rows for st in stages)
-    cols = int(read.sum())
-    scratch = sum(kops.split_scratch_bytes(T[pre + "seg_vals"], len(stages),
-                                           1) for pre in ("loc_", "rem_"))
+    fixed, per_column = {}, {}
+    for name in _COUNTED_FAMILIES:
+        sids = families.get(name)
+        if sids is None:
+            continue
+        stages = [program.stages[lo + k] for k in sids.tolist()]
+        read = np.zeros(A.ncols, dtype=bool)
+        for st in stages:
+            read[A.col_index[A.row_ptr[st.row_offset]:
+                             A.row_ptr[st.row_offset + st.rows]]] = True
+        rows = sum(st.rows for st in stages)
+        fixed[name + ".nnz"] = sum(st.nnz for st in stages)
+        fixed[name + ".rows"] = rows
+        per_column[name + ".x_elems"] = int(read.sum())
+        per_column[name + ".y_elems"] = rows
+        if name == "tile":
+            fixed["tile.tiles"] = sum(st.tile.num_tiles for st in stages)
+        if name == "split":
+            per_column["split.scratch_bytes"] = sum(
+                kops.split_scratch_bytes(T[pre + "seg_vals"], len(stages), 1)
+                for pre in ("loc_", "rem_"))
+    if not fixed:
+        return _no_counters
 
     def counts(B: int) -> dict:
-        return {"split.scratch_bytes": scratch * B, "split.nnz": nnz,
-                "split.rows": rows, "split.x_elems": cols * B,
-                "split.y_elems": rows * B}
+        return {**fixed, **{k: v * B for k, v in per_column.items()}}
     return counts
 
 

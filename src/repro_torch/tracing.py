@@ -28,13 +28,14 @@ and ``lower.emu_accounting``; ``executor.build`` over
 ``executor.operands`` and ``executor.upload``; ``executor.capture``;
 the per-call ``spmv.call`` with the counters ``spmv.calls`` and
 ``spmv.starved`` (calls that found all earlier work of their executor
-done, so the device waited for them); and, in an executor with split
-shards, the split family's per-call counters, fixed per x shape and
-counted at graph replays too: ``split.scratch_bytes`` (the bytes of its
-running sums, both passes; its fix-up writes y), ``split.nnz``,
-``split.rows``, ``split.x_elems`` and ``split.y_elems`` (its shards'
-nonzeros and rows, the distinct x elements they read and the y elements
-they write).
+done, so the device waited for them); and, in an executor with split,
+tile or ELL shards, each such family's per-call counters, fixed per x
+shape and counted at graph replays too: ``<family>.nnz``,
+``<family>.rows``, ``<family>.x_elems`` and ``<family>.y_elems`` (its
+shards' nonzeros and rows, the distinct x elements they read and the y
+elements they write), ``tile.tiles`` (the tile shards' tiles) and
+``split.scratch_bytes`` (the bytes of the split family's running sums,
+both passes; its fix-up writes y).
 """
 from __future__ import annotations
 

@@ -1006,6 +1006,59 @@ def test_powerlaw_tail_plan_replays_bitwise_and_counts_split_scratch(
     assert err <= conf["limit"]["norm_err"]
 
 
+def test_blocked_band_plan_replays_bitwise_and_matches_float64(device):
+    """The benchmark's blocked_band plan (tile on the four band shards,
+    ELL on the four scattered ones) at its rehearsal size, 4,096 rows:
+    graph replays are bitwise the eager calls, a vector and an (N, 8)
+    block, each recorded replay counts the tile and ELL families as the
+    eager call does, and y is the float64 product's within the
+    configuration's limit."""
+    from repro_torch import tracing
+    conf = json.loads((Path(__file__).resolve().parents[1] / "bench" /
+                       "configs" / "blocked_band.json").read_text())
+    params = {k: v for k, v in conf["matrix"].items()
+              if k not in ("generator", "M", "nnz")}
+    M, nnz = conf["matrix"]["M"] // 64, conf["matrix"]["nnz"] // 64
+    A = mats.blocked_band(M, nnz, seed=0, **params)
+    prog = P.lower(A, SpmvPlan(**conf["plan"]))
+    assert prog.shard_kernels() == tuple(conf["plan"]["shard_kernels"])
+    eager = P.make_program_spmv_fn(prog, device=device)
+    graphed = P.make_program_spmv_fn(prog, device=device, graphs=True)
+    rng = np.random.default_rng(3)
+    names = ("tile.nnz", "tile.tiles", "ell.nnz", "ell.x_elems")
+    try:
+        for shape in ((M,), (M, 8)):
+            xs = [_on_card(prog, rng.standard_normal(shape), device)
+                  for _ in range(3)]
+            graphed(xs[0])                        # the capture
+            tracing.reset()
+            tracing.enable()
+            want = [eager(x) for x in xs]
+            torch.cuda.synchronize(device)
+            per_call = {k: tracing.counter(k) // 3 for k in names}
+            assert all(per_call.values())
+            tracing.reset()                       # a new session
+            tracing.enable()
+            got = [graphed(x) for x in xs]
+            torch.cuda.synchronize(device)
+            assert tracing.counter("spmv.calls") == 3
+            assert {k: tracing.counter(k) for k in names} == \
+                {k: 3 * v for k, v in per_call.items()}
+            tracing.reset()
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+    finally:
+        tracing.reset()
+    for shape in ((M,), (M, 8)):
+        x = rng.standard_normal(shape)
+        y = P.device_spmv(graphed, x).astype(np.float64).reshape(M, -1)
+        xf = x.astype(np.float32).astype(np.float64).reshape(M, -1)
+        absA = dataclasses.replace(A, values=np.abs(A.values))
+        for c in range(xf.shape[1]):
+            scale = np.abs(csr_matvec(absA, np.abs(xf[:, c]))).max()
+            err = np.abs(y[:, c] - csr_matvec(A, xf[:, c])).max() / scale
+            assert err <= conf["limit"]["norm_err"]
+
+
 @pytest.mark.parametrize("graphs", [True, False])
 def test_call_spans_and_starvation_on_the_card(device, graphs):
     """With recording on, every call adds to ``spmv.call`` and
