@@ -1024,7 +1024,7 @@ def _build_executor(program, mesh, axis, device, pipeline, graphs):
     rb_used = {pre: _tile_rows_used(ops[pre + "tile_ptr"][lo:hi], tile_sids)
                for pre in ("loc_", "rem_")}
     num_splits = {"loc_": ops["NS_loc"], "rem_": ops["NS_rem"]}
-    counts = _family_counters(program, T, families, lo)
+    counts = _family_counters(program, ops, T, families, lo)
 
     def kernel_pass(pre: str, xbuf):
         y = torch.empty((n, xbuf.shape[2], R), dtype=torch.float32,
@@ -1083,17 +1083,21 @@ def _build_executor(program, mesh, axis, device, pipeline, graphs):
 _COUNTED_FAMILIES = ("split", "tile", "ell")
 
 
-def _family_counters(program: SpmvProgram, T: dict, families: dict,
-                     lo: int):
+def _family_counters(program: SpmvProgram, ops: dict, T: dict,
+                     families: dict, lo: int):
     """``counts(B)``: what a recorded call of B columns adds to the
     counters of each family of :data:`_COUNTED_FAMILIES` that the block
     runs, fixed when the executor is built: ``<family>.nnz`` and
     ``<family>.rows`` (its shards', in both passes together),
     ``<family>.x_elems`` (the distinct columns they read, times B) and
     ``<family>.y_elems`` (their rows, times B); besides, ``tile.tiles``
-    (the tile stages' tiles) and ``split.scratch_bytes`` (the device
+    (the tile stages' tiles), ``split.scratch_bytes`` (the device
     scratch the split family's two passes allocate,
-    :func:`kops.split_scratch_bytes`).  Nothing without such shards."""
+    :func:`kops.split_scratch_bytes`) and ``split.long_rows``,
+    ``split.long_pieces`` and ``split.long_runs`` (what the split
+    fix-up's long-row path takes in both passes, from the host piece
+    tables ``ops``: :func:`kops.split_long_rows`).  Nothing without such
+    shards."""
     A = program.matrix
     fixed, per_column = {}, {}
     for name in _COUNTED_FAMILIES:
@@ -1116,6 +1120,13 @@ def _family_counters(program: SpmvProgram, T: dict, families: dict,
             per_column["split.scratch_bytes"] = sum(
                 kops.split_scratch_bytes(T[pre + "seg_vals"], len(stages), 1)
                 for pre in ("loc_", "rem_"))
+            shards = lo + sids.cpu().numpy()
+            for pre in ("loc_", "rem_"):
+                for key, v in kops.split_long_rows(
+                        ops[pre + "seg_pieces"][shards],
+                        ops[pre + "piece_ptr"][shards],
+                        ops["NS_" + pre[:-1]]).items():
+                    fixed["split." + key] = fixed.get("split." + key, 0) + v
     if not fixed:
         return _no_counters
 

@@ -76,16 +76,37 @@
 //     (their lanes store the rows' zeros) and then dealt out to the
 //     block's FIXUP_WARPS warps in turn: a matrix's monster rows are
 //     often neighbours, and one warp would walk them one after another.
-//     A warp takes its row in rounds of ROUND = LONG_LOADS * 32 pieces:
-//     lane i loads records base + 32u + i and their psum pairs and puts
-//     the splits and differences in the warp's stage in shared memory;
-//     the next round's records go out; lane b adds column b's differences
-//     in piece order from the stage (4 a 16-byte read), leaving each
-//     piece's running sum there; then every lane stores the sums of the
-//     runs that end at its pieces.  A 256-piece row costs 2 rounds of
-//     dependent loads, not 256: no thread waits on more than two
-//     dependent loads (record, then psum) per 128 pieces, and the in-order
-//     adds read shared memory and store nothing.
+//     Over d and into partials a warp takes its row in rounds of ROUND =
+//     LONG_LOADS * 32 pieces: lane i loads records base + 32u + i and
+//     their psum pairs and puts the splits and differences in the warp's
+//     stage in shared memory; the next round's records go out; lane b adds
+//     column b's differences in piece order from the stage (4 a 16-byte
+//     read), leaving each piece's running sum there; then every lane
+//     stores the sums of the runs that end at its pieces.  A 256-piece row
+//     costs 2 rounds of dependent loads, not 256: no thread waits on more
+//     than two dependent loads (record, then psum) per 128 pieces.
+//     Into y (split_fixup) one lane's fold of every piece in turn would be
+//     the row's whole chain (a dense row of 2,048 pieces: 16 rounds of 128
+//     dependent adds), though a row's sum depends only on its runs' sums,
+//     each from +0 in piece order, added in split order from +0.  So the
+//     warp takes the row in super-rounds of SUPER pieces (one round at
+//     RHS_CHUNK columns, where SUPER pieces would not fit a block's 48 KB
+//     of static shared memory): it stages the super-round round by round,
+//     each round's psum loads before the next round's records, and marks
+//     the runs' starts (__ballot_sync on a change of split; at one column
+//     as it goes), keeping their positions in the warp's stage; then the
+//     super-round's run segments are dealt to the lanes, WARP / NB at a
+//     time with a lane a segment and column, and each lane sums its
+//     segment from the stage in piece order, from +0, or, for a first
+//     segment that goes on with the run the previous super-round ended in,
+//     from that run's sum so far: a serial sum goes on where it stopped,
+//     so every bit is the same.  Every lane then adds the finished
+//     segments of its column to the row sum in split order (a shuffle
+//     each), and keeps the super-round's last segment as the run that may
+//     go on; the row's last run is added at its end and the row stored
+//     once.  The adds a row waits on in turn are its longest segment a
+//     super-round, not its pieces; what stays serial is the staging, a
+//     round of dependent loads and four warp votes a 128 pieces.
 // Each piece is added exactly once, in piece order, starting from 0 for
 // each (row, split): the in-order sum seg_fixup_plain takes with
 // index_add_, bitwise (split_fixup: then the runs in order from 0, as
@@ -132,7 +153,8 @@ constexpr int LONG_LOADS = 4;           // pieces a lane loads a round of a
                                         // long row (128 a warp)
 constexpr int FIXUP_WARPS = 8;          // seg_fixup: warps a block
 constexpr int ROUND = LONG_LOADS * WARP;  // a long row's pieces a round
-constexpr int STAGE = ROUND + 4;        // a column's row in the stage
+constexpr int SUPER = 512;              // split_fixup: a long row's pieces
+                                        // a super-round at one column
 constexpr int STEP = 4 * WARP;          // elements a warp scans per step
 constexpr int STEPS_AHEAD = 4;          // steps whose loads go out at once
 constexpr int GROUP = STEP * STEPS_AHEAD;  // elements a warp's loads cover
@@ -564,28 +586,24 @@ __device__ __forceinline__ void load_records(const int* pc, int base, int pe,
 
 // The whole warp takes one long row's pieces [p, pe) a round at a time.
 // Each round's splits and differences go to the warp's stage in shared
-// memory (`sd` a row of STAGE floats a column, so the folding lanes' 16-byte
-// reads hit distinct banks), the next round's records go out, and lane
-// b < nb adds column b's differences in piece order, 4 a shared-memory
-// read, leaving each piece's running sum in the stage; then every lane
-// stores the sums of the runs that end in its pieces.  `o` points at the
-// row's output of column 0, split 0.  With DIFFS (NS = 1) the differences
-// are read from seg_piece_sums' d (`ps` the shard's column b0, piece p at
-// ps[p]): no records, one coalesced load a round.  With `to_y` (not DIFFS)
-// lane b adds each finished run to column b's row sum instead, across
-// rounds, and stores that once at the row's end into y (`o`, a column R
-// floats apart); nothing goes back to the stage.
-template <int NB, bool DIFFS>
+// memory (`sd` a row of SP + 4 floats a column, so the folding lanes'
+// 16-byte reads hit distinct banks; a round fills its first ROUND), the
+// next round's records go out, and lane b < nb adds column b's differences
+// in piece order, 4 a shared-memory read, leaving each piece's running sum
+// in the stage; then every lane stores the sums of the runs that end in
+// its pieces.  `o` points at the row's output of column 0, split 0.  With
+// DIFFS (NS = 1) the differences are read from seg_piece_sums' d (`ps` the
+// shard's column b0, piece p at ps[p]): no records, one coalesced load a
+// round.
+template <int NB, bool DIFFS, int SP>
 __device__ __forceinline__ void long_row_fixup(
     const float* ps, long long cs, const int* pc, int p, int pe, int L,
-    int NS, int R, int nb, bool to_y, float* o, float (&sd)[NB][STAGE],
-    int (&ss)[ROUND]) {
+    int NS, int R, int nb, float* o, float (&sd)[NB][SP + 4],
+    int (&ss)[SP]) {
   const int lane = threadIdx.x % WARP;
-  const bool fold = !DIFFS && to_y;   // false at compile time under DIFFS
   Records rc;
   if constexpr (!DIFFS) load_records(pc, p, pe, NS, rc);
   float acc = 0.f;                              // lane b: column b's sum
-  float row = 0.f;                              // fold: its finished runs
   int t = -1;                                   // the split being summed
   for (int base = p; base < pe; base += ROUND) {
 #pragma unroll
@@ -620,20 +638,17 @@ __device__ __forceinline__ void long_row_fixup(
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           if (i0 + j < cnt) {
-            if (fold && ts[j] != t) row = __fadd_rn(row, acc);  // +0 first
             acc = ts[j] != t ? 0.f : acc;       // a new run starts from 0
             acc = __fadd_rn(acc, ds[j]);
             t = ts[j];
             ds[j] = acc;
           }
         }
-        if (!fold)
-          *reinterpret_cast<float4*>(&sd[lane][i0]) =
-              make_float4(ds[0], ds[1], ds[2], ds[3]);
+        *reinterpret_cast<float4*>(&sd[lane][i0]) =
+            make_float4(ds[0], ds[1], ds[2], ds[3]);
       }
     }
     __syncwarp();
-    if (fold) continue;           // the stage is refilled after this sync
     // piece i ends a run where the next piece has another split or the row
     // ends; the next round's first split is lane 0's first record
     int next_split = 0;
@@ -653,7 +668,169 @@ __device__ __forceinline__ void long_row_fixup(
     }
     __syncwarp();                 // the stage is read before it is refilled
   }
-  if (fold && lane < nb) o[(long long)lane * R] = __fadd_rn(row, acc);
+}
+
+// The in-order sum of d[i .. e - 1] onto `acc`, four a 16-byte read (`d`
+// 16-byte aligned).
+__device__ __forceinline__ float sum_run(const float* d, int i, int e,
+                                         float acc) {
+  for (; i < e && (i & 3); ++i) acc = __fadd_rn(acc, d[i]);
+#pragma unroll 2
+  for (; i + 4 <= e; i += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(d + i);
+    acc = __fadd_rn(acc, v.x);
+    acc = __fadd_rn(acc, v.y);
+    acc = __fadd_rn(acc, v.z);
+    acc = __fadd_rn(acc, v.w);
+  }
+  for (; i < e; ++i) acc = __fadd_rn(acc, d[i]);
+  return acc;
+}
+
+// Stage pieces [q, q + cnt) of a long row at one column, a round at a
+// time: `rc` holds the first round's records on entry and those of the
+// round after the last on return.  A round's psum loads go out, then the
+// next round's records, then its differences go to `d` as they land and
+// its run starts are found window by window (a shuffle and a ballot
+// each): a piece starts a segment where its split differs from the piece
+// before (lane l - 1's, or for lane 0 lane 31's of the window before), and
+// piece 0 always does; each segment's first position goes to `seg`, in
+// piece order.  Returns the segments' count; `first` and `last` get the
+// splits of pieces 0 and cnt - 1, read from the table.
+template <int SP>
+__device__ __forceinline__ int stage_column(const float* ps, const int* pc,
+                                            int q, int cnt, int pe, int L,
+                                            int NS, float* d, int (&seg)[SP],
+                                            Records& rc, int& first,
+                                            int& last) {
+  const int lane = threadIdx.x % WARP;
+  int nseg = 0;
+  int tail = 0;                   // lane 31: the split ending the last round
+  for (int r0 = 0; r0 < cnt; r0 += ROUND) {
+    int sp[LONG_LOADS];
+    float dv[LONG_LOADS];
+#pragma unroll
+    for (int u = 0; u < LONG_LOADS; ++u) {
+      sp[u] = rc.split[u];
+      dv[u] = piece_diff(ps + (long long)rc.ch[u] * L, rc.lo[u], rc.hi[u]);
+    }
+    load_records(pc, q + r0 + ROUND, pe, NS, rc);   // the next round's
+#pragma unroll
+    for (int u = 0; u < LONG_LOADS; ++u) {
+      const int i = r0 + u * WARP + lane;
+      d[i] = dv[u];
+      const int give =
+          lane < WARP - 1 ? sp[u] : u == 0 ? tail : sp[u > 0 ? u - 1 : 0];
+      const int before = __shfl_sync(FULL_MASK, give, (lane + 31) % 32);
+      const unsigned m =
+          __ballot_sync(FULL_MASK, i < cnt && (i == 0 || sp[u] != before));
+      if (m >> lane & 1) seg[nseg + __popc(m & ((1u << lane) - 1))] = i;
+      nseg += __popc(m);
+    }
+    tail = sp[LONG_LOADS - 1];
+  }
+  first = NS > 1 ? pc[(long long)q * 5 + 4] : 0;
+  last = NS > 1 ? pc[(long long)(q + cnt - 1) * 5 + 4] : 0;
+  return nseg;
+}
+
+// split_fixup's long rows (`fold`): the whole warp takes the row's pieces
+// [p, pe) a super-round of SP at a time, staging its differences in `sd`
+// (a row of SP + 4 floats a column) and, in piece order, the first
+// position of each run segment in `seg`: a piece starts one where its
+// split differs from the piece before, and piece 0 always does.  At one
+// column the run starts are found as each round is staged (stage_column);
+// at NB > 1 a round is staged as long_row_fixup stages it (its splits in
+// `seg`, then the next round's records), so the NB columns' loads take
+// the registers they take there, and the starts are found from the staged
+// splits afterwards, compacted into `seg` in place.  Then lane (slot, b)
+// sums column b of segments w0 + slot, SLOTS = WARP / NB at a time, in
+// piece order (four a 16-byte read) from +0, or, for segment 0 where it
+// goes on with the run the super-round before ended in (its split is
+// `t`), from that run's sum so far (`carry`); and every lane adds its
+// column's finished segments to the row sum, in order, by shuffles,
+// keeping the super-round's last segment as `carry`.  A run that ended
+// with the super-round before is added before segment 0.  So each run is
+// its pieces' in-order sum from +0 and the row its runs' sum in split
+// order from +0, as split_fixup_plain adds them, bit for bit.  `o` points
+// at the row's y of column 0 (a column R floats apart); it is stored once,
+// at the row's end.
+template <int NB, int SP>
+__device__ __forceinline__ void long_row_fold(
+    const float* ps, long long cs, const int* pc, int p, int pe, int L,
+    int NS, int R, int nb, float* o, float (&sd)[NB][SP + 4],
+    int (&seg)[SP]) {
+  static_assert(SP % ROUND == 0, "whole rounds a super-round");
+  constexpr int SLOTS = WARP / NB;              // segments summed at once
+  const int lane = threadIdx.x % WARP;
+  const int slot = lane / NB, b = lane % NB;
+  Records rc;
+  load_records(pc, p, pe, NS, rc);
+  float row = 0.f;                // column b's finished runs
+  float carry = 0.f;              // the run the last super-round ended in
+  int t = -1;                     // its split
+  for (int base = p; base < pe; base += SP) {
+    const int cnt = min(SP, pe - base);
+    int nseg = 0;                 // segments of the super-round
+    int first = 0, last = 0;      // the splits of its first and last piece
+    if constexpr (NB == 1) {
+      nseg = stage_column<SP>(ps, pc, base, cnt, pe, L, NS, sd[0], seg, rc,
+                              first, last);
+    } else {
+      for (int r0 = 0; r0 < cnt; r0 += ROUND) {
+#pragma unroll
+        for (int u = 0; u < LONG_LOADS; ++u) {
+          const int i = r0 + u * WARP + lane;
+          seg[i] = rc.split[u];
+#pragma unroll
+          for (int c = 0; c < NB; ++c)
+            sd[c][i] = c < nb ? piece_diff(ps + c * cs +
+                                               (long long)rc.ch[u] * L,
+                                           rc.lo[u], rc.hi[u])
+                              : 0.f;
+        }
+        load_records(pc, base + r0 + ROUND, pe, NS, rc);  // the next round's
+      }
+    }
+    __syncwarp();                 // the stage is written before it is read
+    if constexpr (NB > 1) {       // the run starts, from the staged splits
+      int tail = 0;               // the split ending the window before
+      first = seg[0];
+      last = seg[cnt - 1];
+      for (int w = 0; w < cnt; w += WARP) {
+        const int i = w + lane;
+        const int s = i < cnt ? seg[i] : 0;
+        int before = __shfl_up_sync(FULL_MASK, s, 1);
+        if (lane == 0) before = tail;
+        const unsigned m =
+            __ballot_sync(FULL_MASK, i < cnt && (i == 0 || s != before));
+        tail = __shfl_sync(FULL_MASK, s, WARP - 1);
+        __syncwarp();             // the window is read before it is written
+        if (m >> lane & 1) seg[nseg + __popc(m & ((1u << lane) - 1))] = i;
+        nseg += __popc(m);
+      }
+      __syncwarp();
+    }
+    const bool cont = first == t;               // segment 0 goes on with it
+    if (!cont) row = __fadd_rn(row, carry);     // +0 at the row's start
+    for (int w0 = 0; w0 < nseg; w0 += SLOTS) {
+      const int k = w0 + slot;
+      float acc = k == 0 && cont ? carry : 0.f;
+      if (k < nseg && b < nb)
+        acc = sum_run(sd[b], seg[k], k + 1 < nseg ? seg[k + 1] : cnt, acc);
+      const int n = min(SLOTS, nseg - w0);
+      for (int j = 0; j < n; ++j) {
+        const float v = __shfl_sync(FULL_MASK, acc, j * NB + b);
+        if (w0 + j < nseg - 1)
+          row = __fadd_rn(row, v);
+        else
+          carry = v;                            // it may go on
+      }
+    }
+    t = last;
+    __syncwarp();                 // the stage is read before it is refilled
+  }
+  if (slot == 0 && b < nb) o[(long long)b * R] = __fadd_rn(row, carry);
 }
 
 // Row r of the k-th launched shard: its piece table (null without one),
@@ -679,13 +856,17 @@ __device__ __forceinline__ FixupRow fixup_row(
 // One column: at least 4 blocks an SM, so that the short rows' chain of
 // three dependent loads (piece_ptr, record, psum) has the warps to hide it
 // (left free, ptxas takes 66-68 registers a thread: 3 blocks an SM).
+// RHS_CHUNK columns over psum: at least 3, the 80 registers a thread the
+// fix-up took before split_fixup's super-rounds (with them, left free,
+// 87-121: 2 blocks an SM, and the short rows 25% slower at B = 8).
 // DIFFS: `src` is seg_piece_sums' d (n, B, Pp) and NS = 1, so a piece's
 // difference is one load at its index, the chain two loads (piece_ptr,
 // d) and `pieces`, C and L are not read; else `src` is psum (n, B, C, L).
 // `to_y` (read only without DIFFS): `out` is y (S, B, R) at out_ids[k],
 // one value a row and column, its runs' sum; else the NS-split output.
 template <int NB, bool DIFFS>
-__global__ void __launch_bounds__(FIXUP_WARPS* WARP, NB == 1 ? 4 : 1)
+__global__ void __launch_bounds__(FIXUP_WARPS* WARP,
+                                  NB == 1 ? 4 : DIFFS ? 1 : 3)
     seg_fixup_kernel(const float* __restrict__ src,
                      const int* __restrict__ pieces,
                      const int* __restrict__ piece_ptr,
@@ -693,9 +874,15 @@ __global__ void __launch_bounds__(FIXUP_WARPS* WARP, NB == 1 ? 4 : 1)
                      const int* __restrict__ out_ids, int n_sids, int C,
                      int L, int Pp, int R, int NS, int B,
                      float* __restrict__ out, bool to_y) {
+  // a long row's round (or, under `fold`, super-round) a warp: its
+  // differences, and its splits (the run segments' starts under `fold`).
+  // A super-round is SUPER pieces at one column and a round at RHS_CHUNK,
+  // where SUPER pieces of NB floats would not fit a block's 48 KB of
+  // static shared memory.
+  constexpr int SP = DIFFS || NB > 1 ? ROUND : SUPER;
   __shared__ unsigned long_rows[FIXUP_WARPS];   // each warp's, a bit a lane
-  __shared__ __align__(16) float stage_d[FIXUP_WARPS][NB][STAGE];  // a long
-  __shared__ __align__(16) int stage_s[FIXUP_WARPS][ROUND];  // row's round
+  __shared__ __align__(16) float stage_d[FIXUP_WARPS][NB][SP + 4];
+  __shared__ __align__(16) int stage_s[FIXUP_WARPS][SP];
   const int lane = threadIdx.x % WARP, warp = threadIdx.x / WARP;
   const int wps = (R + WARP - 1) / WARP;        // warps a shard
   const long long warps = (long long)n_sids * wps;
@@ -814,8 +1001,17 @@ __global__ void __launch_bounds__(FIXUP_WARPS* WARP, NB == 1 ? 4 : 1)
       const int r = (int)(wv % wps) * WARP + __ffs(mask) - 1;
       const FixupRow row = fixup_row(src, pieces, piece_ptr, sids, out_ids,
                                      out, k, r, cs, Pp, R, ons, B, b0);
-      long_row_fixup<NB, DIFFS>(row.ps, cs, row.pc, row.ptr[r], row.ptr[r + 1], L,
-                         NS, R, nb, to_y, row.o, stage_d[warp], stage_s[warp]);
+      if constexpr (!DIFFS) {
+        if (fold) {
+          long_row_fold<NB, SP>(row.ps, cs, row.pc, row.ptr[r],
+                                row.ptr[r + 1], L, NS, R, nb, row.o,
+                                stage_d[warp], stage_s[warp]);
+          continue;
+        }
+      }
+      long_row_fixup<NB, DIFFS, SP>(row.ps, cs, row.pc, row.ptr[r],
+                                    row.ptr[r + 1], L, NS, R, nb, row.o,
+                                    stage_d[warp], stage_s[warp]);
     }
   }
 }

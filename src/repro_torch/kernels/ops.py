@@ -45,7 +45,8 @@ __all__ = ["SEG_CHUNK", "resolve_device", "hyb_from_csr", "seg_from_csr",
            "split_flat_spmv", "tile_spmv", "tile_flat_spmv", "bell_spmv",
            "bell_spmm", "ell_spmv_ref", "seg_spmv_ref", "split_spmv_ref",
            "tile_spmv_ref", "ell_stacked", "hyb_stacked", "seg_stacked",
-           "split_stacked", "split_scratch_bytes", "tile_stacked"]
+           "split_stacked", "split_scratch_bytes", "split_long_rows",
+           "LONG_ROW", "tile_stacked"]
 
 #: Default elements per segmented chunk (lane-aligned).
 SEG_CHUNK = 512
@@ -493,6 +494,35 @@ def split_scratch_bytes(vals, n: int, B: int) -> int:
     shards and B columns allocates: seg_psum's (n, B, C, L) running sums,
     float32 (the fix-up writes y)."""
     return 4 * n * B * vals.shape[1] * vals.shape[2]
+
+
+#: The most pieces a row may have for one lane of the carry fix-up to walk
+#: it; longer rows go to the block's warps (``LONG_ROW`` in
+#: ``csrc/spmv_seg.cu``).
+LONG_ROW = 2
+
+
+def split_long_rows(pieces, piece_ptr, num_splits: int) -> dict:
+    """What the split fix-up's long-row path takes in one launch over the
+    shards whose host tables are given, ``pieces`` (n, Pp, 5) and
+    ``piece_ptr`` (n, R+1): ``long_rows``, the rows of more than
+    :data:`LONG_ROW` pieces; ``long_pieces``, their pieces; ``long_runs``,
+    their runs (a change of split starts one; at one split a row is one
+    run).  ``long_pieces / long_runs`` is the mean serial chain of adds
+    the path leaves a run."""
+    rows = n_pieces = runs = 0
+    for pcs, ptr in zip(pieces, piece_ptr):
+        count = np.diff(ptr)
+        long = count > LONG_ROW
+        row = np.repeat(np.arange(count.size), count)
+        split = pcs[ptr[0]:ptr[-1], 4] if num_splits > 1 else \
+            np.zeros(row.size, dtype=np.int32)
+        new = np.ones(row.size, dtype=bool)
+        new[1:] = (row[1:] != row[:-1]) | (split[1:] != split[:-1])
+        rows += int(long.sum())
+        n_pieces += int(count[long].sum())
+        runs += int(new[long[row]].sum())
+    return {"long_rows": rows, "long_pieces": n_pieces, "long_runs": runs}
 
 
 def tile_stacked(data, xcol, brow, tile_ptr, x, sids, *, rb_used=None,

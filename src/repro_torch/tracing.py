@@ -35,7 +35,9 @@ shape and counted at graph replays too: ``<family>.nnz``,
 shards' nonzeros and rows, the distinct x elements they read and the y
 elements they write), ``tile.tiles`` (the tile shards' tiles) and
 ``split.scratch_bytes`` (the bytes of the split family's running sums,
-both passes; its fix-up writes y).
+both passes; its fix-up writes y), and ``split.long_rows``,
+``split.long_pieces`` and ``split.long_runs`` (the rows its fix-up takes
+on the block's warps, their pieces and their runs, both passes).
 """
 from __future__ import annotations
 

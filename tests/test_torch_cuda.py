@@ -22,7 +22,7 @@ from repro_torch.data import matrices as mats
 from repro_torch.kernels import _lib, exchange, ops, spmv_ell, spmv_seg, \
     spmv_split, spmv_tile
 
-from test_torch_split_fixup import split_fixup_case
+from test_torch_split_fixup import long_rows_case, split_fixup_case
 
 pytestmark = pytest.mark.cuda
 
@@ -484,6 +484,32 @@ def test_split_fixup_on_card_is_bitwise_the_pair(device, ns, B):
     for b in {0, B // 2, B - 1}:
         one = fused(args[0][:, b:b + 1].contiguous())
         assert torch.equal(_bits(one[o][:, 0]), _bits(got[o][:, b]))
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 11])
+@pytest.mark.parametrize("ns", [1, 64])
+def test_split_fixup_on_long_rows_is_bitwise_the_pair(device, ns, B):
+    # rows of 3 to about 4,000 pieces over 1 to 64 splits, all on the
+    # warps' super-rounds: bitwise the plain version, the partials path on
+    # the card and, column by column, the B = 1 call
+    psum, pcs, ptr, sids = long_rows_case(B, seed=B, ns=ns)
+    R = ptr.shape[1] - 1
+    want = spmv_split.split_fixup_plain(psum, pcs, ptr, sids, ns, torch.full(
+        (2, B, R), float("nan")))
+    args = [t.to(device) for t in (psum, pcs, ptr, sids)]
+
+    def fused(ps):
+        return spmv_split.split_fixup(ps, *args[1:], num_splits=ns, out=(
+            torch.full((2, ps.shape[1], R), float("nan"), device=device)))
+    got = fused(args[0])
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got.cpu()), _bits(want))
+    pair = _partials_path(*args, ns, torch.full((2, B, R), float("nan"),
+                                                device=device))
+    assert torch.equal(_bits(got), _bits(pair))
+    for b in range(B):
+        one = fused(args[0][:, b:b + 1].contiguous())
+        assert torch.equal(_bits(one[:, 0]), _bits(got[:, b]))
 
 
 def _tail_split_program():

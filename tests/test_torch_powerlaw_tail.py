@@ -153,7 +153,8 @@ def test_an_all_seg_plan_counts_no_split_scratch(matrix):
     tracing.enable()
     run(_x(prog, 1)[1])
     assert tracing.counter("spmv.calls") == 1
-    for k in ("scratch_bytes", "nnz", "rows", "x_elems", "y_elems"):
+    for k in ("scratch_bytes", "nnz", "rows", "x_elems", "y_elems",
+              "long_rows", "long_pieces", "long_runs"):
         assert tracing.counter("split." + k) == 0
 
 

@@ -12,12 +12,18 @@ round-to-nearest is never -0, so the two are held bitwise here:
   a round boundary of ``LONG_LOADS`` * 32 pieces, runs of -0 differences)
   for NS 1, 7, 64 and B 1, 3, 8, 11;
 * an emulation of the kernel's schedule with ``to_y`` (short rows a lane
-  each, a block's long rows dealt to its warps and walked in rounds, runs
-  folded at each change of split and at the row's end; one store a row)
-  against the plain version, every row of a launched shard written once;
+  each, runs folded at each change of split and at the row's end; a
+  block's long rows dealt to its warps and taken in super-rounds of
+  ``SUPER`` pieces, their run segments summed a lane each and folded in
+  order, a run that crosses a super-round carried; one store a row)
+  against the plain version, every row of a launched shard written once,
+  on that case and on :func:`long_rows_case` (rows of 3 to about 4,000
+  pieces over 1 to NS splits);
 * the executor on the CPU: both passes through one ``split_fixup`` each,
   none through ``seg_fixup`` or ``split_combine``, and y bitwise the
-  executor run through the pair.
+  executor run through the pair; its counters of the long-row path
+  (``split.long_rows``, ``split.long_pieces``, ``split.long_runs``)
+  against counts taken row by row from its piece tables.
 
 Inputs are made with numpy from a seed.
 """
@@ -27,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import program as P
 from repro_torch.core.spmv import SpmvPlan
 from repro_torch.data import matrices as mats
@@ -44,16 +51,20 @@ def _const(name):
     return int(re.search(rf"constexpr int {name} = (\d+);", _SRC).group(1))
 
 
-LONG_ROW, LONG_LOADS, FIXUP_WARPS = (_const(c) for c in (
-    "LONG_ROW", "LONG_LOADS", "FIXUP_WARPS"))
+LONG_ROW, LONG_LOADS, FIXUP_WARPS, SUPER = (_const(c) for c in (
+    "LONG_ROW", "LONG_LOADS", "FIXUP_WARPS", "SUPER"))
 ROUND = LONG_LOADS * WARP
+RHS_CHUNK = int(re.search(r"constexpr int RHS_CHUNK = (\d+);",
+                          (_lib.CSRC / "common.cuh").read_text()).group(1))
 
 
 def _row_splits(ns, rng):
     """The split sequences of the rows the case must hold, each sorted:
-    at and past ``LONG_ROW``, and long rows whose split changes exactly at
-    a round boundary (piece ROUND, 2 * ROUND of the row), one piece after
-    it, or at every piece."""
+    at and past ``LONG_ROW``, long rows whose split changes exactly at a
+    round boundary (piece ROUND, 2 * ROUND of the row), one piece after it,
+    or at every piece, and at a super-round boundary (piece SUPER): a run
+    that ends there, a run of one piece that ends there, a run that goes
+    one piece past it, and random runs across two boundaries."""
     a, b, c, d = np.sort(rng.choice(ns, 4, replace=False)) if ns >= 4 \
         else (0, 0, 0, 0)
     return [
@@ -64,6 +75,10 @@ def _row_splits(ns, rng):
         [a] * (ROUND - 1) + [b] * (ROUND + 1),
         list(np.sort(rng.integers(0, ns, 3 * ROUND + 17))),
         [c] * 1037,
+        [a] * SUPER + [b] * 7,                         # at SUPER
+        [a] * (SUPER - 1) + [b] + [c] * 5,
+        [b] * (SUPER + 1) + [c] * 2,
+        list(np.sort(rng.integers(0, ns, 2 * SUPER + 77))),
     ]
 
 
@@ -116,6 +131,48 @@ def split_fixup_case(ns, B, *, seed=0, S=3, R=200, C=24, L=64):
     psum[:, :, C - 1] = -0.0
     return (torch.from_numpy(psum), torch.from_numpy(pieces),
             torch.from_numpy(ptr), torch.tensor([2, 0], dtype=torch.int32))
+
+
+def long_rows_case(B, *, seed=0, S=2, R=40, C=32, L=64, ns=64):
+    """Long rows only: psum (2, B, C, L) of shards sids = [1, 0] of S, the
+    piece tables (S, Pp, 5) padded with [0, 1, 0, 0, 0], and piece_ptr
+    (S, R+1).  A shard's rows take 3 to about 4,000 pieces (LONG_ROW + 1,
+    SUPER - 1, SUPER, SUPER + 1 and 2 * SUPER + 1 among them, the rest
+    log-uniform) over 1 to ``ns`` splits (a row's splits drawn from a
+    random subset of that size, sorted), one row a piece a split (runs of
+    one piece), and a sixth of the pieces padded (lo > hi)."""
+    rng = np.random.default_rng(seed)
+    one = max(min(ns, 40), LONG_ROW + 1)       # the row of one-piece runs
+    counts = [[LONG_ROW + 1, SUPER - 1, SUPER, SUPER + 1, 2 * SUPER + 1, one]
+              + list(np.exp(rng.uniform(np.log(3), np.log(4000), R - 6))
+                     .astype(int)) for _ in range(S)]
+    tables = []
+    for s in range(S):
+        recs = []
+        for r, c in enumerate(counts[s]):
+            if r == 5:                  # a split a piece, where ns allows
+                sp = np.sort(rng.choice(ns, c, replace=c > ns))
+            else:
+                used = rng.choice(ns, rng.integers(1, ns + 1), replace=False)
+                sp = np.sort(rng.choice(used, c))
+            a, b = rng.integers(0, L, (2, c))
+            lo = np.where(rng.random(c) < 0.3, 0, np.minimum(a, b))
+            hi = np.maximum(a, b)
+            pad = rng.random(c) < 1 / 6
+            lo, hi = np.where(pad, 1, lo), np.where(pad, 0, hi)
+            recs.append(np.stack([rng.integers(0, C, c), lo, hi,
+                                  np.full(c, r), sp], 1))
+        tables.append(np.concatenate(recs).astype(np.int32))
+    Pp = max(len(t) for t in tables) + 3
+    pieces = np.tile(np.array([0, 1, 0, 0, 0], np.int32), (S, Pp, 1))
+    ptr = np.zeros((S, R + 1), np.int32)
+    for s, t in enumerate(tables):
+        pieces[s, :len(t)] = t
+        ptr[s] = np.searchsorted(t[:, 3], np.arange(R + 1))
+    psum = (rng.standard_normal((2, B, C, L))
+            * 10.0 ** rng.uniform(-3, 3, (2, B, C, L))).astype(np.float32)
+    return (torch.from_numpy(psum), torch.from_numpy(pieces),
+            torch.from_numpy(ptr), torch.tensor([1, 0], dtype=torch.int32))
 
 
 def pair_plain(psum, pieces, piece_ptr, sids, ns, out):
@@ -177,15 +234,24 @@ def emulate_split_fixup(psum, pieces, piece_ptr, sids, ns, out):
     LONG_ROW pieces (runs restarted at each change of split and folded
     into the row's sum, the last one at the row's end; one store), a long
     row's lane stores nothing; then the block's long rows are dealt to
-    its FIXUP_WARPS warps in turn and walked in rounds of ROUND pieces,
-    lane b folding column b's runs across rounds, one store at the end.
-    Returns ``out`` and how often each (shard, row) was stored."""
+    its FIXUP_WARPS warps in turn and walked in super-rounds of SUPER
+    pieces (ROUND at RHS_CHUNK columns, B > 1): the super-round's run
+    segments (a change of split starts one, and so does piece 0) are
+    dealt WARP // NB at a time to the lanes, a segment and column a lane,
+    each summed in piece order from +0, or, for a segment 0 that goes on
+    with the run the super-round before ended in, from that run's carried
+    sum; then the finished segments are added to the row sum in order and
+    the last one carried (a carried run that ended is added first); the
+    row's last run at its end, one store.  Returns ``out`` and how often
+    each (shard, row) was stored."""
     psum, pcs, ptr = psum.numpy(), pieces.numpy(), piece_ptr.numpy()
     out = out.numpy()
     B, R = psum.shape[1], ptr.shape[1] - 1
     wps = -(-R // WARP)
     zero = np.zeros(B, np.float32)
     stores = np.zeros((out.shape[0], R), int)
+    nb = 1 if B == 1 else RHS_CHUNK               # columns a thread keeps
+    sp_pieces, slots = (SUPER if nb == 1 else ROUND), WARP // nb
 
     def piece(k, q):
         chunk, lo, hi, _, split = pcs[sids[k], q]
@@ -222,19 +288,32 @@ def emulate_split_fixup(psum, pieces, piece_ptr, sids, ns, out):
             store(k, r, total + acc)
         for k, r in longs:                          # then the long rows
             p, pe = spans[k, r]
-            acc, total, t = zero, zero, -1
-            for base in range(p, pe, ROUND):
-                for q in range(base, min(base + ROUND, pe)):
-                    split, d = piece(k, q)
-                    if split != t:
-                        total = total + acc         # +0 at the first piece
-                    acc = (acc if split == t else zero) + d
-                    t = split
-            store(k, r, total + acc)
+            row, carry, t = zero, zero, -1
+            for base in range(p, pe, sp_pieces):    # a super-round
+                staged = [piece(k, q)
+                          for q in range(base, min(base + sp_pieces, pe))]
+                splits = [sp for sp, _ in staged]
+                starts = [i for i, sp in enumerate(splits)
+                          if i == 0 or sp != splits[i - 1]]
+                ends = starts[1:] + [len(staged)]
+                cont = splits[0] == t
+                if not cont:
+                    row = row + carry               # +0 at the row's start
+                sums = []
+                for w0 in range(0, len(starts), slots):     # a lane each
+                    for seg in range(w0, min(w0 + slots, len(starts))):
+                        acc = carry if seg == 0 and cont else zero
+                        for i in range(starts[seg], ends[seg]):
+                            acc = acc + staged[i][1]
+                        sums.append(acc)
+                for v in sums[:-1]:                 # the fold, in order
+                    row = row + v
+                carry, t = sums[-1], splits[-1]
+            store(k, r, row + carry)
     return torch.from_numpy(out), stores
 
 
-@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("B", [1, 3, 8])
 @pytest.mark.parametrize("ns", [1, 7, 64])
 def test_kernel_schedule_is_bitwise_the_plain_version(ns, B):
     psum, pcs, ptr, sids = split_fixup_case(ns, B, seed=1)
@@ -245,6 +324,23 @@ def test_kernel_schedule_is_bitwise_the_plain_version(ns, B):
                                         _nan(psum, ptr))
     assert (stores[o] == 1).all() and not stores[1].any()
     assert torch.equal(_bits(got[o]), _bits(want[o]))
+
+
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("ns", [1, 7, 64])
+def test_kernel_schedule_on_long_rows_is_bitwise_the_plain_version(ns, B):
+    # rows of 3 to about 4,000 pieces, at and across super-round
+    # boundaries, runs of one piece, padded pieces among the real ones
+    psum, pcs, ptr, sids = long_rows_case(B, seed=ns, ns=ns)
+    lengths = (ptr[:, 1:] - ptr[:, :-1]).flatten()
+    assert lengths.min() > LONG_ROW and lengths.max() > 2 * SUPER
+    o = sids.long()
+    got, stores = emulate_split_fixup(psum, pcs, ptr, sids, ns,
+                                      _nan(psum, ptr, S=2))
+    want = spmv_split.split_fixup_plain(psum, pcs, ptr, sids, ns,
+                                        _nan(psum, ptr, S=2))
+    assert (stores == 1).all()
+    assert torch.equal(_bits(got), _bits(want))
 
 
 @pytest.fixture(scope="module")
@@ -285,3 +381,50 @@ def test_executor_runs_one_fused_fixup_a_pass(tail_prog, monkeypatch, B):
     monkeypatch.setattr(ops, "_split_fixup_combine", pair_plain)
     want = P.make_program_spmv_fn(prog, device="cpu")(xs)
     assert torch.equal(_bits(y), _bits(want))
+
+
+def test_long_row_is_the_kernels():
+    assert ops.LONG_ROW == LONG_ROW
+
+
+def _hand_long_rows(d, pre, shards):
+    """A pass's rows of more than LONG_ROW pieces in ``shards``, their
+    pieces and their runs, row by row from the pass's ``piece_ptr`` and
+    piece table (with one split a row is one run)."""
+    rows = pieces = runs = 0
+    for s in shards:
+        ptr, pcs = d[pre + "piece_ptr"][s], d[pre + "seg_pieces"][s]
+        for r in range(len(ptr) - 1):
+            n = int(ptr[r + 1] - ptr[r])
+            if n <= LONG_ROW:
+                continue
+            split = pcs[ptr[r]:ptr[r + 1], 4].tolist() \
+                if d["NS_" + pre[:-1]] > 1 else [0] * n
+            rows, pieces = rows + 1, pieces + n
+            runs += 1 + sum(a != b for a, b in zip(split[1:], split[:-1]))
+    return rows, pieces, runs
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_long_row_counters_are_the_hand_counts(tail_prog, B):
+    # a recorded call counts the split fix-up's long rows, their pieces
+    # and runs, both passes, whatever B; another call as many again
+    A, prog = tail_prog
+    d = P._device_operands(prog)
+    shards = [k for k, st in enumerate(prog.stages) if st.kernel == "split"]
+    want = [sum(c) for c in zip(*(_hand_long_rows(d, pre, shards)
+                                  for pre in ("loc_", "rem_")))]
+    assert 0 < want[0] < want[2] < want[1]      # rows over several splits
+    keys = [f"split.long_{k}" for k in ("rows", "pieces", "runs")]
+    run = P.make_program_spmv_fn(prog, device="cpu")
+    x = np.random.default_rng(3).standard_normal((A.ncols, B))
+    xs = torch.from_numpy(prog.x_to_device(x.astype(np.float32)))
+    tracing.reset()
+    try:
+        tracing.enable()
+        run(xs)
+        assert [tracing.counter(k) for k in keys] == want
+        run(xs)
+        assert [tracing.counter(k) for k in keys] == [2 * c for c in want]
+    finally:
+        tracing.reset()
